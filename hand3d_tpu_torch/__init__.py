@@ -1,10 +1,11 @@
 """hand3d_tpu_torch — the PyTorch / CUDA port of hand3d_tpu for one NVIDIA H100.
 
-The serving cascade of ColorHandPose3D (HandSegNet -> single-blob mask ->
-bbox -> 256x256 crop -> PoseNet -> PosePrior/ViewpointNet lifting ->
-keypoint decode) in eager PyTorch. Module names follow ``hand3d_tpu`` so each
-counterpart is easy to find; public functions keep its layouts (NHWC images,
-[B, K, 2] (row, col) keypoints) while convolutions run NCHW inside.
+The cascade of ColorHandPose3D (HandSegNet -> single-blob mask -> bbox ->
+256x256 crop -> PoseNet -> PosePrior/ViewpointNet lifting -> keypoint
+decode), its serving front and its evaluation path, in eager PyTorch.
+Module names follow ``hand3d_tpu`` so each counterpart is easy to find;
+public functions keep its layouts (NHWC images, [B, K, 2] (row, col)
+keypoints) while convolutions run NCHW inside.
 
 The two Pallas kernels of the JAX package are hand-written CUDA C++ here
 (``csrc/floodfill.cu``, ``csrc/decode.cu``), built with nvcc for sm_90a at
@@ -12,12 +13,19 @@ first use (``ops/kernels``). A CUDA tensor goes through the kernel; a CPU
 tensor goes through its plain PyTorch twin. The package never imports jax.
 
 Package layout:
-  weights.py  npz reader, TF-layout -> torch conversion, seeded random init
-  ops/        nn, image, segmentation, keypoints, rotations, canonical
-  ops/kernels nvcc build + ctypes bindings of the CUDA kernels
-  models/     HandSegNet, PoseNet, PosePrior/ViewpointNet, the cascade
-  serving.py  padded-batch HandPoseEstimator
-  parity.py   flip-aware cascade comparison shared by tests and chip_smoke
+  precision.py exact f32 on the card (TF32 off), called by every entry point
+  weights.py   npz reader, TF-layout -> torch conversion, seeded random init
+  ops/         nn, image, segmentation, keypoints, numerics, rotations,
+               canonical, kinematics
+  ops/kernels  nvcc build + ctypes bindings of the CUDA kernels
+  models/      HandSegNet, PoseNet, PosePrior/ViewpointNet and the five
+               lifting variants, the cascade (seg_scale, soft-argmax,
+               inference2d)
+  data/        RHD / STB record codecs and readers, on-device preprocessing
+  eval/        EPE / PCK / AUC metrics and the five eval harnesses
+  cli/         eval2d_gt_cropped, eval2d, eval3d, eval_full
+  serving.py   padded-batch HandPoseEstimator
+  parity.py    flip-aware cascade comparison shared by tests and chip_smoke
 """
 
 __version__ = "0.1.0"

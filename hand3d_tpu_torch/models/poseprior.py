@@ -7,12 +7,18 @@ concat the hand-side one-hot, FC(512) x 2, FC to 21*3 canonical coords.
 ViewpointNet (:274-334): the same tower with [64, 128, 256] channels,
 FC 256 -> 128, three scalar heads -> Rodrigues rotation matrix. Dropout is
 the identity at inference and is left out.
+
+The standalone PosePriorNetwork with the reference's five lifting variants
+(nets/PosePriorNetwork.py:30-234) is composed from the same pieces.
 """
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from hand3d_tpu_torch.ops import nn
 from hand3d_tpu_torch.ops.canonical import flip_right_hand
+from hand3d_tpu_torch.ops.kinematics import bone_rel_trafo_inv
 from hand3d_tpu_torch.ops.rotations import rodrigues_rot_mat
 
 NUM_KP = 21
@@ -21,6 +27,7 @@ POSEPRIOR_SCOPE = "PosePrior"
 VIEWPOINT_SCOPE = "ViewpointNet"
 POSE_CHANS = (32, 64, 128)
 VP_CHANS = (64, 128, 256)
+VARIANTS = ("direct", "bottleneck", "local", "local_w_xyz_loss", "proposed")
 
 
 def _prefix(chans):
@@ -49,12 +56,18 @@ def _tower_apply(params, scoremap, hand_side, chans):
     return torch.cat([x, hand_side.to(x.dtype)], dim=1)
 
 
-def init_poseprior(rng):
+def init_poseprior(rng, bottleneck=False):
+    """PosePrior params (TF scope 'PosePrior'); ``bottleneck`` adds the
+    30-wide fc_bottleneck before the coordinate head."""
     params = _tower_init(rng, POSE_CHANS)
     flat = (SCOREMAP_SIZE // 8) ** 2 * POSE_CHANS[-1]
     params["fc_rel0"] = nn.dense_init(rng, flat + 2, 512)
     params["fc_rel1"] = nn.dense_init(rng, 512, 512)
-    params["fc_xyz"] = nn.dense_init(rng, 512, NUM_KP * 3)
+    if bottleneck:
+        params["fc_bottleneck"] = nn.dense_init(rng, 512, 30)
+        params["fc_xyz"] = nn.dense_init(rng, 30, NUM_KP * 3)
+    else:
+        params["fc_xyz"] = nn.dense_init(rng, 512, NUM_KP * 3)
     return params
 
 
@@ -73,6 +86,8 @@ def apply_poseprior(params, scoremap, hand_side):
     x = _tower_apply(params, scoremap, hand_side, POSE_CHANS)
     x = nn.dense_relu(x, params["fc_rel0"])
     x = nn.dense_relu(x, params["fc_rel1"])
+    if "fc_bottleneck" in params:
+        x = nn.dense(x, params["fc_bottleneck"])
     return nn.dense(x, params["fc_xyz"]).reshape(-1, NUM_KP, 3)
 
 
@@ -89,6 +104,48 @@ def apply_viewpoint(params, scoremap, hand_side):
 def lift_to_relative(coord_can, rot_mat, hand_side):
     """Flip right hands, rotate canonical coords to the camera frame
     (ColorHandPose3DNetwork._inference_pose3d, :239-245). Exact f32 on the
-    card as long as TF32 matmuls stay off (serving.HandPoseEstimator)."""
+    card as long as TF32 matmuls stay off (precision.exact_f32)."""
     cond_right = torch.argmax(hand_side, dim=1) == 1
     return torch.matmul(flip_right_hand(coord_can, cond_right), rot_mat)
+
+
+class LiftingOutput(NamedTuple):
+    coord_xyz_rel_normed: torch.Tensor  # [B, 21, 3]
+    coord3d: torch.Tensor  # the variant's own prediction space
+    rot_mat: Optional[torch.Tensor]  # [B, 3, 3] for 'proposed', else None
+
+
+class PosePriorNetwork:
+    """Standalone lifting network with the reference's five variants
+    (nets/PosePriorNetwork.py:30-122)."""
+
+    def __init__(self, variant="proposed"):
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+        self.variant = variant
+
+    def init(self, rng):
+        """Seeded numpy params from the ``np.random.Generator`` ``rng``: the
+        names and shapes of the JAX package's PosePriorNetwork(variant).init
+        (ViewpointNet only for 'proposed')."""
+        params = {POSEPRIOR_SCOPE: init_poseprior(
+            rng, bottleneck=self.variant == "bottleneck")}
+        if self.variant == "proposed":
+            params[VIEWPOINT_SCOPE] = init_viewpoint(rng)
+        return params
+
+    def apply(self, params, scoremap, hand_side):
+        """scoremap [B, 256, 256, 21] (or already pooled [B, 32, 32, 21]) +
+        hand side [B, 2] -> LiftingOutput (PosePriorNetwork.inference,
+        :59-95). A 256x256 map is average pooled 8x8 first (:61)."""
+        if scoremap.shape[1] != SCOREMAP_SIZE:
+            scoremap = nn.avg_pool(scoremap.permute(0, 3, 1, 2), 8) \
+                .permute(0, 2, 3, 1)
+        pred = apply_poseprior(params[POSEPRIOR_SCOPE], scoremap, hand_side)
+        if self.variant in ("direct", "bottleneck"):
+            return LiftingOutput(pred, pred, None)
+        if self.variant in ("local", "local_w_xyz_loss"):
+            return LiftingOutput(bone_rel_trafo_inv(pred), pred, None)
+        rot_mat = apply_viewpoint(params[VIEWPOINT_SCOPE], scoremap, hand_side)
+        return LiftingOutput(lift_to_relative(pred, rot_mat, hand_side), pred,
+                             rot_mat)

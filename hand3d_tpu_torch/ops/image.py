@@ -12,16 +12,19 @@ import numpy as np
 import torch
 
 
-def _legacy_lin_coeffs(in_size, out_size):
+def _legacy_lin_coeffs(in_size, out_size, align_corners=False):
     """Gather indices + f32 lerp weights of one axis (numpy, float64 grid)."""
-    src = np.arange(out_size) * (in_size / out_size)
+    if align_corners and out_size > 1:
+        src = np.arange(out_size) * ((in_size - 1) / (out_size - 1))
+    else:
+        src = np.arange(out_size) * (in_size / out_size)
     lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
     hi = np.minimum(lo + 1, in_size - 1)
     return lo, hi, (src - lo).astype(np.float32)
 
 
-def _resize_axis(x, axis, out_size):
-    lo, hi, wt = _legacy_lin_coeffs(x.shape[axis], out_size)
+def _resize_axis(x, axis, out_size, align_corners):
+    lo, hi, wt = _legacy_lin_coeffs(x.shape[axis], out_size, align_corners)
     shape = [1] * x.ndim
     shape[axis] = out_size
     wt = torch.from_numpy(wt).to(x.device).reshape(shape)
@@ -31,17 +34,18 @@ def _resize_axis(x, axis, out_size):
             + x.index_select(axis, hi) * wt)
 
 
-def resize_bilinear(x, out_hw):
+def resize_bilinear(x, out_hw, align_corners=False):
     """Bilinear resize of [B, H, W, C] float32 to ``out_hw`` (rows, then cols).
 
-    Matches TF1 tf.image.resize_images(..., BILINEAR, align_corners=False):
-    asymmetric source grid, edge clamp.
+    Matches TF1 tf.image.resize_images(..., BILINEAR): asymmetric source grid
+    (src = dst * in / out) with edge clamp, or with ``align_corners`` the
+    grid src = dst * (in - 1) / (out - 1).
     """
     oh, ow = out_hw
     if oh != x.shape[1]:
-        x = _resize_axis(x, 1, oh)
+        x = _resize_axis(x, 1, oh, align_corners)
     if ow != x.shape[2]:
-        x = _resize_axis(x, 2, ow)
+        x = _resize_axis(x, 2, ow, align_corners)
     return x
 
 
@@ -112,3 +116,35 @@ def crop_image_from_xy(image, crop_location, crop_size, scale):
     boxes = torch.stack(
         [y1 / h, x1 / w, (y1 + size_scaled) / h, (x1 + size_scaled) / w], 1)
     return crop_and_resize(image, boxes, (crop_size, crop_size))
+
+
+def create_gaussian_maps(coords_hw, output_size, sigma, valid=None):
+    """Per-keypoint Gaussian scoremaps
+    (BinaryDbReader.create_multiple_gaussian_map, :412-459).
+
+    Keypoints are truncated toward zero to integer pixels first; one outside
+    the open interval (0, size - 1), or not ``valid``, renders as zeros. The
+    map is exp(-d^2 / sigma^2), with no factor 2.
+
+    Args:
+      coords_hw: [B, K, 2] (row, col) in pixels.
+      output_size: (H, W).
+      sigma: Gaussian width.
+      valid: optional [B, K] bool visibility.
+    Returns:
+      [B, H, W, K] float32.
+    """
+    oh, ow = output_size
+    coords_i = coords_hw.to(torch.float32).to(torch.int32)  # trunc to zero
+    cond_in = ((coords_i[..., 0] < oh - 1) & (coords_i[..., 0] > 0)
+               & (coords_i[..., 1] < ow - 1) & (coords_i[..., 1] > 0))
+    if valid is not None:
+        cond_in = cond_in & (valid.to(torch.float32) > 0.5)
+    coords_f = coords_i.to(torch.float32)
+    dev = coords_hw.device
+    rows = torch.arange(oh, dtype=torch.float32, device=dev)[None, :, None, None]
+    cols = torch.arange(ow, dtype=torch.float32, device=dev)[None, None, :, None]
+    du = rows - coords_f[:, None, None, :, 0]
+    dv = cols - coords_f[:, None, None, :, 1]
+    maps = torch.exp(-(du * du + dv * dv) / float(np.float32(sigma)) ** 2)
+    return maps * cond_in[:, None, None, :].to(torch.float32)

@@ -20,6 +20,20 @@ def detect_keypoints_2d(scoremaps):
     return torch.stack([idx // w, idx % w], dim=-1).to(torch.float32)
 
 
+def soft_argmax_2d(scoremaps, beta=1.0):
+    """Sub-pixel keypoints as the softmax expectation of each channel:
+    [B, H, W, K] -> [B, K, 2] float32 (row, col). An extension of the JAX
+    package; the reference decodes by argmax."""
+    b, h, w, k = scoremaps.shape
+    flat = scoremaps.permute(0, 3, 1, 2).reshape(b, k, h * w)
+    weights = torch.softmax(beta * flat, dim=-1)
+    dev = scoremaps.device
+    rows = torch.arange(h, dtype=torch.float32, device=dev)
+    cols = torch.arange(w, dtype=torch.float32, device=dev)
+    grid = torch.stack([rows.repeat_interleave(w), cols.repeat(h)], -1)
+    return torch.matmul(weights, grid)
+
+
 def decode_upsampled_torch(scoremap, factor):
     """Plain twin of the decode kernel: argmax of the materialized
     ``factor``-times TF1 bilinear upsampling of [B, h, w, K] -> [B, K, 2]."""

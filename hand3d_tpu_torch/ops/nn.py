@@ -52,6 +52,27 @@ def max_pool_2x2(x):
     return F.max_pool2d(x, 2, 2)
 
 
+def avg_pool(x, size, stride=None):
+    """TF-SAME average pool of NCHW ``x`` (PosePriorNetwork.py:61).
+
+    Evenly tiling windows are VALID. A ragged edge pads TF-SAME (the odd
+    pixel after, unlike ``F.avg_pool2d``'s symmetric padding) and divides
+    each window by its count of real pixels.
+    """
+    stride = stride or size
+    h, w = x.shape[2:]
+    if size == stride and h % stride == 0 and w % stride == 0:
+        return F.avg_pool2d(x, size, stride)
+    pt, pb = _same_pads(h, size, stride)
+    pl, pr = _same_pads(w, size, stride)
+
+    def window_sums(t):
+        return F.avg_pool2d(F.pad(t, (pl, pr, pt, pb)), size, stride,
+                            divisor_override=1)
+
+    return window_sums(x) / window_sums(torch.ones_like(x[:1, :1]))
+
+
 def dense(x, params):
     """matmul + bias; params {"weights": [in, out], "biases": [out]}."""
     return torch.matmul(x, params["weights"]) + params["biases"]

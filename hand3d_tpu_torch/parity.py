@@ -18,8 +18,15 @@ comparison checks:
    otherwise the reference's stages from the crop onward are rerun from the
    tested run's center and scale_crop, and the rest is held to that;
 5. PoseNet's scoremap agrees within ``scoremap_atol``, keypoint_coord3d
-   within ``coord3d_atol``, and keypoint_uv21 exactly for every keypoint
-   whose 32x32 top-2 gap in the reference exceeds ``flip_bound``.
+   within ``coord3d_atol``, and for every keypoint whose 32x32 peak in the
+   reference is clear (a top-2 gap above ``flip_bound``) both runs pick the
+   same 32x32 cell and keypoint_uv21 agrees: exactly, or, along an axis where
+   that cell is in the last row or column, within the plateau there
+   (``peak_slack``). For the soft-argmax decoder, which has no flips, every
+   keypoint is held within ``uv_atol`` instead.
+
+hand_scoremap is compared at the localization resolution, where the mask is
+made (``ColorHandPose3D.localize``).
 
 ``flip_bound`` has to be at least twice ``scoremap_atol``: a flip that
 scoremap noise within the tolerance can cause is then always allowed.
@@ -28,7 +35,7 @@ scoremap noise within the tolerance can cause is then always allowed.
 import numpy as np
 import torch
 
-from hand3d_tpu_torch.models.cascade import ColorHandPose3D
+from hand3d_tpu_torch.models.cascade import CROP_SIZE, ColorHandPose3D
 from hand3d_tpu_torch.ops import segmentation
 
 FIELDS = ("hand_scoremap", "fg", "detmap", "seed", "hand_mask", "center",
@@ -48,32 +55,62 @@ def top2_gap(scoremap):
     return top[:, -1] - top[:, -2]
 
 
-def port_fields(params, image, hand_side):
-    """Every FIELDS entry of this port's cascade, as numpy arrays.
+def peak_slack(scoremap, flip_bound):
+    """[B, h, w, K] -> (clear [B, K] bool, slack [B, K, 2] float, (u, v)).
+
+    clear: the keypoint's argmax decode is no float near-tie, its 32x32
+    top-2 gap exceeds ``flip_bound``. slack: how many pixels of the
+    upsampled crop two correct runs may place a clear keypoint apart along
+    each axis. It is 0, or factor - 1 along an axis where the 32x32 peak is
+    in the last row or column: the TF1 upsampling clamps there (hi = lo), so
+    the peak becomes a plateau of ``factor`` positions along that axis whose
+    values differ by rounding alone.
+    """
+    b, h, w, k = scoremap.shape
+    idx = scoremap.reshape(b, h * w, k).argmax(1)
+    on_edge = np.stack([idx % w == w - 1, idx // w == h - 1], -1)
+    return (top2_gap(scoremap) > flip_bound,
+            on_edge * float(CROP_SIZE // h - 1))
+
+
+def _crop_px(uv, center, scale_crop):
+    """Global (u, v) [B, K, 2] -> the upsampled-crop pixel it was decoded
+    at (the inverse of ``trafo_coords``, rounded)."""
+    return np.rint((uv - center[:, None, ::-1]) * scale_crop[:, :, None]
+                   + CROP_SIZE // 2)
+
+
+def port_fields(params, image, hand_side, net=None):
+    """Every FIELDS entry of this port's cascade ``net`` (default
+    ``ColorHandPose3D()``), as numpy arrays: ``localize`` and
+    ``pose_from_box``, which are what ``inference`` runs. hand_scoremap and
+    the mask fields are at the localization resolution.
 
     params: torch tree; image [B, H, W, 3] and hand_side [B, 2] tensors, all
     on one device.
     """
-    net = ColorHandPose3D()
+    net = net or ColorHandPose3D()
     with torch.inference_mode():
-        out = net.inference(params, image, hand_side, keypoints_scoremap=False)
-        fg, detmap, seed = segmentation.foreground(out.hand_scoremap)
-        mask = segmentation.single_obj_scoremap(out.hand_scoremap)[..., 0]
-        pose = net.pose_from_box(params, image, out.center, out.scale_crop,
-                                 hand_side)
-    fields = dict(zip(FIELDS, (out.hand_scoremap, fg, detmap, seed, mask,
-                               out.center, out.scale_crop, pose.scoremap,
-                               out.keypoint_coord3d, out.keypoint_uv21)))
+        seg, center, scale_crop = net.localize(params, image)
+        fg, detmap, seed = segmentation.foreground(seg)
+        mask = segmentation.single_obj_scoremap(seg)[..., 0]
+        pose = net.pose_from_box(params, image, center, scale_crop, hand_side)
+    fields = dict(zip(FIELDS, (seg, fg, detmap, seed, mask, center,
+                               scale_crop, pose.scoremap,
+                               pose.keypoint_coord3d, pose.keypoint_uv21)))
     return {k: v.cpu().numpy() for k, v in fields.items()}
 
 
-def port_rerun(params, image, hand_side):
-    """rerun(center, scale_crop) for check_cascade with this port as the
-    reference: its stages from the crop onward, as numpy arrays."""
+def port_rerun(params, image, hand_side, net=None):
+    """rerun(center, scale_crop) for check_cascade with this port's cascade
+    ``net`` as the reference: its stages from the crop onward, as numpy
+    arrays."""
+    net = net or ColorHandPose3D()
+
     def rerun(center, scale_crop):
         dev = image.device
         with torch.inference_mode():
-            pose = ColorHandPose3D.pose_from_box(
+            pose = net.pose_from_box(
                 params, image, torch.from_numpy(center).to(dev),
                 torch.from_numpy(scale_crop).to(dev), hand_side)
         return {k: getattr(pose, k).cpu().numpy() for k in DOWNSTREAM}
@@ -81,7 +118,7 @@ def port_rerun(params, image, hand_side):
 
 
 def check_cascade(ref, got, rerun, *, scoremap_atol, coord3d_atol,
-                  flip_bound):
+                  flip_bound, uv_atol=None):
     """Raise AssertionError unless ``got`` matches ``ref`` as set out in the
     module docstring.
 
@@ -89,9 +126,11 @@ def check_cascade(ref, got, rerun, *, scoremap_atol, coord3d_atol,
       ref, got: dicts of numpy arrays with the FIELDS keys.
       rerun: (center [B, 2], scale_crop [B, 1]) -> dict of the DOWNSTREAM
         keys, computed by the reference implementation.
+      uv_atol: for a continuous decoder (soft-argmax) every keypoint_uv21 is
+        held within this tolerance instead of the argmax rule of step 5.
     Returns:
       a summary dict: mask pixels flipped, images rerun, max errors, and how
-      many keypoints were held to exact uv.
+      many keypoints were held to exact uv and to an edge plateau.
     """
     _require(flip_bound >= 2 * scoremap_atol, "flip_bound < 2 * scoremap_atol")
     err = float(np.abs(got["hand_scoremap"] - ref["hand_scoremap"]).max())
@@ -132,13 +171,33 @@ def check_cascade(ref, got, rerun, *, scoremap_atol, coord3d_atol,
     c3_err = float(np.abs(got["keypoint_coord3d"]
                           - down["keypoint_coord3d"]).max())
     _require(c3_err <= coord3d_atol, f"keypoint_coord3d differs by {c3_err}")
-    clear = top2_gap(down["scoremap"]) > flip_bound  # [B, K]
-    same_uv = (got["keypoint_uv21"] == down["keypoint_uv21"]).all(-1)
-    _require(same_uv[clear].all(), "uv differs at keypoints with a clear "
-             f"peak: {np.argwhere(clear & ~same_uv).tolist()}")
-    return {"mask_pixels_flipped": int(flipped.sum()),
-            "images_rerun": rerun_rows,
-            "hand_scoremap_max_abs_err": err,
-            "scoremap_max_abs_err": sm_err,
-            "coord3d_max_abs_err": c3_err,
-            "uv_keypoints_held_exact": int(clear.sum())}
+    summary = {"mask_pixels_flipped": int(flipped.sum()),
+               "images_rerun": rerun_rows,
+               "hand_scoremap_max_abs_err": err,
+               "scoremap_max_abs_err": sm_err,
+               "coord3d_max_abs_err": c3_err}
+    if uv_atol is not None:
+        uv_err = float(np.abs(got["keypoint_uv21"]
+                              - down["keypoint_uv21"]).max())
+        _require(uv_err <= uv_atol, f"keypoint_uv21 differs by {uv_err}")
+        return dict(summary, uv_max_abs_err=uv_err)
+    clear, slack = peak_slack(down["scoremap"], flip_bound)
+    b, h, w, k = down["scoremap"].shape
+    same_cell = (got["scoremap"].reshape(b, h * w, k).argmax(1)
+                 == down["scoremap"].reshape(b, h * w, k).argmax(1))
+    _require(same_cell[clear].all(), "32x32 argmax differs at keypoints "
+             f"with a clear peak: {np.argwhere(clear & ~same_cell).tolist()}")
+    got_uv, want_uv = got["keypoint_uv21"], down["keypoint_uv21"]
+    exact = (slack == 0).all(-1)
+    same_uv = (got_uv == want_uv).all(-1)
+    _require(same_uv[clear & exact].all(), "uv differs at keypoints with a "
+             f"clear peak: {np.argwhere(clear & exact & ~same_uv).tolist()}")
+    # both runs decode within one crop box: got's (down is rerun from it)
+    moved = np.abs(_crop_px(got_uv, got["center"], got["scale_crop"])
+                   - _crop_px(want_uv, got["center"], got["scale_crop"]))
+    on_plateau = (moved <= slack).all(-1)
+    plateau = clear & ~exact
+    _require(on_plateau[plateau].all(), "uv leaves the edge plateau at "
+             f"keypoints {np.argwhere(plateau & ~on_plateau).tolist()}")
+    return dict(summary, uv_keypoints_held_exact=int((clear & exact).sum()),
+                uv_keypoints_held_on_plateau=int(plateau.sum()))

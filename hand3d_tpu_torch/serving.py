@@ -11,6 +11,7 @@ Example:
 import numpy as np
 import torch
 
+from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.weights import load_npz, params_from_jax
 
@@ -73,19 +74,13 @@ class HandPoseEstimator:
       device: torch device to run on, e.g. "cuda" or "cpu". On a CUDA device
         the two hand-written kernels run; on the CPU their plain twins.
 
-    On CUDA the estimator turns TF32 off for cuDNN convolutions and cuBLAS
-    matmuls (``torch.backends.cudnn.allow_tf32``,
-    ``torch.backends.cuda.matmul.allow_tf32``; process-wide settings): the
-    cascade's parity contract is f32, and TF32 keeps only ~3 decimal digits,
-    enough to flip the mask and keypoint argmaxes.
+    On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
+    the cascade's parity contract is f32.
     """
 
     def __init__(self, params, batch_size=16, input_hw=(240, 320),
                  left_hand=True, *, device):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = precision.exact_f32(device)
         self.net = ColorHandPose3D()
         self.params = params_from_jax(params, self.device)
         self.batch_size = batch_size

@@ -64,3 +64,10 @@ def random_params(seed):
         poseprior.POSEPRIOR_SCOPE: poseprior.init_poseprior(rng),
         poseprior.VIEWPOINT_SCOPE: poseprior.init_viewpoint(rng),
     }
+
+
+def random_lifting_params(variant, seed):
+    """Seeded TF-layout numpy tree with the names and shapes of
+    ``hand3d_tpu.models.poseprior.PosePriorNetwork(variant).init(key)``."""
+    return poseprior.PosePriorNetwork(variant).init(
+        np.random.default_rng(seed))

@@ -67,6 +67,8 @@ def test_port_runs_without_jax():
         "import sys, numpy as np\n"
         "from hand3d_tpu_torch.serving import HandPoseEstimator\n"
         "from hand3d_tpu_torch.weights import random_params\n"
+        "from hand3d_tpu_torch.cli import (eval2d, eval2d_gt_cropped,\n"
+        "                                  eval3d, eval_full)\n"
         "est = HandPoseEstimator(random_params(0), batch_size=1,\n"
         "                        input_hw=(32, 32), device='cpu')\n"
         "out = est.predict(np.zeros((1, 32, 32, 3), np.uint8))\n"

@@ -130,3 +130,36 @@ def test_params_from_jax_rejects_unported_layouts():
         weights.params_from_jax(
             {"HandSegNet": {"conv1_1": {"weights_q": np.zeros(3, np.int8)}}},
             "cpu")
+
+
+@pytest.mark.parametrize("variant", j_poseprior.VARIANTS)
+@pytest.mark.parametrize("size", [32, 256])
+def test_poseprior_network_variants_match(variant, size):
+    """PosePriorNetwork(variant).apply at the pooled 32x32 input and at the
+    256x256 one it average-pools 8x8 first. 'local' variants run the
+    kinematic chain, 'proposed' the viewpoint net."""
+    net = j_poseprior.PosePriorNetwork(variant)
+    params = net.init(jax.random.PRNGKey(5))
+    rng = np.random.default_rng(size)
+    sm = rng.random((2, size, size, 21), np.float32)
+    hs = np.array([[1.0, 0.0], [0.0, 1.0]], np.float32)
+    want = net.apply(params, jnp.asarray(sm), jnp.asarray(hs))
+    got = poseprior.PosePriorNetwork(variant).apply(
+        to_torch(params), torch.from_numpy(sm), torch.from_numpy(hs))
+    for name in ("coord_xyz_rel_normed", "coord3d", "rot_mat"):
+        w, g = getattr(want, name), getattr(got, name)
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert_close(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("variant", j_poseprior.VARIANTS)
+def test_random_lifting_params_names_and_shapes_match_jax_init(variant):
+    want = jax.eval_shape(j_poseprior.PosePriorNetwork(variant).init,
+                          jax.random.PRNGKey(0))
+    assert _shapes(weights.random_lifting_params(variant, 0)) == _shapes(want)
+
+
+def test_poseprior_network_rejects_unknown_variant():
+    with pytest.raises(ValueError, match="unknown variant"):
+        poseprior.PosePriorNetwork("nope")

@@ -331,3 +331,67 @@ def test_detect_keypoints_and_trafo_coords_exact():
                                                jnp.asarray(scale), 256))
     got = keypoints.trafo_coords(got, t(centers), t(scale), 256).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# --- nn.avg_pool, image extras, soft-argmax ----------------------------------
+
+
+@pytest.mark.parametrize("size,stride,hw", [
+    (8, None, (32, 40)),  # evenly tiling: VALID
+    (8, None, (20, 27)),  # ragged: TF-SAME puts the odd pixels after
+    (3, 2, (9, 10)),  # overlapping windows, ragged on one axis
+])
+def test_avg_pool_tf_same(size, stride, hw):
+    """F.avg_pool2d pads symmetrically; TF-SAME pads the odd pixel after and
+    divides by the real pixels of each window. Only a ragged input tells the
+    two apart."""
+    x = np.random.default_rng(13).standard_normal((2, *hw, 3)).astype(
+        np.float32)
+    want = np.asarray(j_nn.avg_pool(jnp.asarray(x), size, stride))
+    got = nhwc(nn.avg_pool(nchw(x), size, stride))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 32, 32, 21), (256, 256)),
+                                          ((1, 12, 9, 3), (5, 27)),
+                                          ((1, 6, 7, 2), (1, 13))])
+def test_resize_bilinear_align_corners_bit_equal(shape, out_hw):
+    x = np.random.default_rng(14).standard_normal(shape).astype(np.float32)
+    want = np.asarray(j_image.resize_bilinear(jnp.asarray(x), out_hw,
+                                              align_corners=True))
+    got = image.resize_bilinear(t(x), out_hw, align_corners=True).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+TINY = np.finfo(np.float32).tiny
+
+
+def test_create_gaussian_maps_matches():
+    """Truncation toward zero (negative coords too), the open interval
+    (0, size - 1), and the visibility mask: the same maps are all zero, the
+    rest agrees within 2 ulp (XLA's and torch's exp differ in the last bit)
+    or below the smallest normal float32 (XLA flushes denormals to zero)."""
+    rng = np.random.default_rng(15)
+    coords = rng.uniform(-5, 45, (3, 21, 2)).astype(np.float32)
+    coords[0, :4] = [[0.9, 10.0], [10.0, 38.99], [-0.5, 10.0], [1.0, 1.0]]
+    valid = rng.random((3, 21)) > 0.3
+    want = np.asarray(j_image.create_gaussian_maps(
+        jnp.asarray(coords), (32, 40), 25.0, jnp.asarray(valid)))
+    got = image.create_gaussian_maps(t(coords), (32, 40), 25.0,
+                                     t(valid)).numpy()
+    np.testing.assert_array_equal(got.max((1, 2)) == 0, want.max((1, 2)) == 0)
+    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=TINY)
+    want = np.asarray(j_image.create_gaussian_maps(jnp.asarray(coords),
+                                                   (32, 40), 3.0))
+    got = image.create_gaussian_maps(t(coords), (32, 40), 3.0).numpy()
+    np.testing.assert_array_equal(got.max((1, 2)) == 0, want.max((1, 2)) == 0)
+    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=TINY)
+
+
+def test_soft_argmax_2d_matches():
+    sm = np.random.default_rng(16).standard_normal((2, 16, 12, 5)).astype(
+        np.float32) * 4
+    want = np.asarray(j_keypoints.soft_argmax_2d(jnp.asarray(sm), beta=2.0))
+    got = keypoints.soft_argmax_2d(t(sm), beta=2.0).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
