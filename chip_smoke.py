@@ -32,10 +32,30 @@ line is printed:
    and its steady-state pace read from the drains of batches inside the
    streaming loop (each right after a launch). The cascade with seg_scale=0.5 and with the soft-argmax decoder is
    held to the CPU run, and the flood-fill kernel to its twin, bit for bit,
-   on the 120x160 maps that seg_scale=0.5 makes.
+   on the 120x160 maps that seg_scale=0.5 makes;
+7. train: the four trainers' CLIs (train_posenet, train_handsegnet,
+   train_lifting proposed, train_joint proposed) each run 20 steps on a
+   synthetic 64-record RHD file at full width (batch 8, 256x256 crops, the
+   reference LR defaults, seeded random weights) with a metrics log and a
+   snapshot directory, every step timed by CUDA events; train_posenet also
+   evaluates in training (eval2d_gt_cropped, twice, 2 batches), which must
+   launch the decode kernel, bit-equal to its twin on those scoremaps. Step
+   0 of each stage is held to the port's CPU run of the same params, batch
+   and noise (kink-aware bounds, see TRAIN_FLIP_RTOL_OF_MAX), and the
+   card's gradients to the same step in float64 on the CPU that takes the
+   card's choice at every leaky ReLU and max pool, with the choices float64
+   would have made otherwise counted and required near their kink; the
+   card's Adam, over 3 steps with a new LR at each, is held to Adam
+   written out in float64 and fed the card's gradients; 20 steps on one
+   repeated batch must lower the PoseNet and lifting losses; 3 steps +
+   --resume 3 must equal 6 straight train_posenet steps bit for bit under
+   deterministic algorithms, in a child process with
+   CUBLAS_WORKSPACE_CONFIG set (the other phases run without it); a
+   torch.profiler window of 3 PoseNet steps gives the conv and idle shares.
+   TF32 must stay off.
 
-Standard output ends with one JSON line per timed batch and per eval
-harness, the kernels line, nvidia-smi's line, and
+Standard output ends with one JSON line per timed batch, per eval harness
+and per training stage, the kernels line, nvidia-smi's line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -50,9 +70,12 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from hand3d_tpu_torch import parity, precision, weights
-from hand3d_tpu_torch.data import codec
+from hand3d_tpu_torch.cli import (train_handsegnet, train_joint,
+                                  train_lifting, train_posenet)
+from hand3d_tpu_torch.data import augment, codec
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd, preprocess_stb
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
@@ -60,10 +83,11 @@ from hand3d_tpu_torch.eval import harnesses
 from hand3d_tpu_torch.models import posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.models.poseprior import VARIANTS
-from hand3d_tpu_torch.ops import keypoints, segmentation
+from hand3d_tpu_torch.ops import keypoints, nn, segmentation
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
 from hand3d_tpu_torch.serving import HandPoseEstimator, normalize_images
+from hand3d_tpu_torch.train import loop, trainer
 
 CPU = torch.device("cpu")
 H, W = 240, 320  # the serving bucket of the JAX package's bench and demo
@@ -96,6 +120,63 @@ MODE_PARITY_IMAGES = 2  # card vs CPU for seg_scale=0.5 and soft-argmax
 # in another order than on the CPU: ~1e-5 of a 256 px coordinate, times 4
 # at the smallest crop scale (0.25)
 SOFT_ARGMAX_UV_ATOL = 2e-2  # px
+
+# training: each trainer's CLI at full width (batch 8, 256^2 GT crops, 256^2
+# random crops of 320^2 frames, the reference LR defaults, seeded weights)
+TRAIN_STAGES = {
+    "posenet": (train_posenet, []),
+    "handsegnet": (train_handsegnet, []),
+    "lifting proposed": (train_lifting, ["--variant", "proposed"]),
+    "joint proposed": (train_joint, ["--variant", "proposed"]),
+}
+TRAIN_RECORDS = 64
+TRAIN_BATCH = 8  # the trainers' default
+TRAIN_STEPS = 20
+# step 0, card vs CPU, same params, batch and noise. Leaky ReLU and max pool
+# have kinks: a pre-activation within float32 rounding of one takes the other
+# branch on one side, and every gradient before it moves. With random weights
+# the card takes another branch than float64 at ~1,000 leaky ReLU inputs of
+# PoseNet's step 0, the CPU at ~20 (measured on this batch: card vs CPU up
+# to 1.4e-2 of a tensor's max |g|, median over a stage's tensors up to
+# 6.1e-4; the last layers, after every kink, 4e-6). So card vs CPU holds the
+# last layers to TRAIN_GRAD_RTOL_OF_MAX, every tensor to
+# TRAIN_FLIP_RTOL_OF_MAX and the stage's median to
+# TRAIN_FLIP_MEDIAN_RTOL_OF_MAX; a wrong backward on the card is off by O(1).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL_OF_MAX = 1e-4
+TRAIN_FLIP_RTOL_OF_MAX = 5e-2
+TRAIN_FLIP_MEDIAN_RTOL_OF_MAX = 5e-3
+TRAIN_LAST_LAYERS = {  # param paths that no kink follows
+    "posenet": ("PoseNet2D/conv7_7/",),
+    "handsegnet": ("HandSegNet/conv6_2/",),
+    "lifting proposed": ("PosePrior/fc_xyz/", "ViewpointNet/fc_vp_u"),
+    "joint proposed": ("PosePrior/fc_xyz/", "ViewpointNet/fc_vp_u"),
+}
+# the same step on the CPU in float64 (params and preprocessed features cast
+# up; the same batch and draws), taking the card's branch at every leaky ReLU
+# and the card's element at every max pool, is the exact gradient of the
+# card's own choices: the card is held to it within TRAIN_GRAD_RTOL_OF_MAX.
+# (measured: 2e-5). Where float64 alone would have chosen otherwise, the
+# input must lie within TRAIN_KINK_MARGIN of the call's largest |input| of
+# its kink: a float32 sum of PoseNet's widest convolution (3x3x512 = 4,608
+# terms) may be off by 4,608 * 2^-24 = 2.7e-4 of its largest term
+# (measured: 3.6e-5).
+TRAIN_KINK_MARGIN = 1e-3
+# Adam on the card (torch's foreach path) against Adam written out in float64
+# on the CPU and fed the card's own gradients, ADAM_STEPS steps on one batch
+# with a new LR at every step (the stage's reference LR values, their
+# boundaries moved to steps 1 and 2). Per step, the moments may differ by a
+# few float32 roundings (ADAM_RTOL of |m| + max |g|, of v + max g^2, plus a
+# subnormal), the params by 4 ulps plus ADAM_UPDATE_ATOL * lr; a wrong LR,
+# bias correction or moment update is off by O(1) of lr.
+ADAM_STEPS = 3
+ADAM_LR_ITER = {"posenet": ("1", "2"), "handsegnet": ("1", "2"),
+                "lifting proposed": ("1",), "joint proposed": ("1",)}
+ADAM_RTOL = 1e-6
+ADAM_UPDATE_ATOL = 1e-5
+F32_SUBNORMAL = 2.0 ** -149
+
+RESUME_CHILD = "--train-resume-child"  # phase_train_resume's own process
 
 KERNELS = {
     "flood_fill": ("hand3d_tpu_torch/csrc/floodfill.cu",
@@ -676,6 +757,544 @@ def phase_eval(dev, params_np, err):
     return totals
 
 
+@contextlib.contextmanager
+def timed_steps():
+    """CUDA events around every train step that ``train.loop.fit`` runs."""
+    events = []
+    base = loop.make_train_step
+
+    def make(*args, **kw):
+        step = base(*args, **kw)
+
+        def timed(state, batch, key):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch, key)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    loop.make_train_step = make
+    try:
+        yield events
+    finally:
+        loop.make_train_step = base
+
+
+@contextlib.contextmanager
+def recorded_decodes():
+    """Record the scoremaps the eval harnesses decode, with what the decode
+    returned for them."""
+    calls = []
+    base = harnesses.decode_upsampled
+
+    def recording(scoremap, factor):
+        out = base(scoremap, factor)
+        calls.append((scoremap.clone(), factor, out.clone()))
+        return out
+
+    harnesses.decode_upsampled = recording
+    try:
+        yield calls
+    finally:
+        harnesses.decode_upsampled = base
+
+
+class Kinks(NamedTuple):
+    """What a run chose at its kinks, in call order: the branch (input > 0)
+    of every leaky ReLU call, the window element every 2x2 max pool took."""
+    relu: list
+    pool: list
+
+
+@contextlib.contextmanager
+def recorded_kinks():
+    """Record the run's Kinks; the ops themselves run as they are."""
+    kinks = Kinks([], [])
+    relu, pool = nn.leaky_relu, nn.max_pool_2x2
+
+    def leaky_relu(x):
+        kinks.relu.append(x.detach() > 0)
+        return relu(x)
+
+    def max_pool_2x2(x):
+        kinks.pool.append(F.max_pool2d(x.detach(), 2, 2,
+                                       return_indices=True)[1])
+        return pool(x)
+
+    nn.leaky_relu, nn.max_pool_2x2 = leaky_relu, max_pool_2x2
+    try:
+        yield kinks
+    finally:
+        nn.leaky_relu, nn.max_pool_2x2 = relu, pool
+
+
+@contextlib.contextmanager
+def pinned_kinks(kinks):
+    """Take another run's ``kinks`` at every kink instead of this run's own
+    choices. Counts where this run's own choice differs and, over those, how
+    near the kink it lay: the largest |input| among the flipped leaky ReLU
+    inputs, and the largest gap between a window's own maximum and the
+    element taken, each over the call's largest |input|."""
+    stats = {"relu_flipped": 0, "relu_flip_margin": 0.0,
+             "pool_flipped": 0, "pool_flip_margin": 0.0}
+    relu_calls, pool_calls = iter(kinks.relu), iter(kinks.pool)
+    relu, pool = nn.leaky_relu, nn.max_pool_2x2
+
+    def leaky_relu(x):
+        branch = next(relu_calls).to(x.device)
+        a = x.detach().abs()
+        flip = (x.detach() > 0) != branch
+        if flip.any():
+            stats["relu_flipped"] += int(flip.sum())
+            stats["relu_flip_margin"] = max(
+                stats["relu_flip_margin"], (a[flip].max() / a.max()).item())
+        return torch.where(branch, x, nn.NEG_SLOPE_OF_RELU * x)
+
+    def max_pool_2x2(x):
+        taken = next(pool_calls).to(x.device)
+        own, own_idx = F.max_pool2d(x.detach(), 2, 2, return_indices=True)
+        out = x.flatten(2).gather(2, taken.flatten(2)).view(taken.shape)
+        flip = own_idx != taken
+        if flip.any():
+            stats["pool_flipped"] += int(flip.sum())
+            gap = (own - out.detach())[flip].max() / x.detach().abs().max()
+            stats["pool_flip_margin"] = max(stats["pool_flip_margin"],
+                                            gap.item())
+        return out
+
+    nn.leaky_relu, nn.max_pool_2x2 = leaky_relu, max_pool_2x2
+    try:
+        yield stats
+    finally:
+        nn.leaky_relu, nn.max_pool_2x2 = relu, pool
+    require(next(relu_calls, None) is None and next(pool_calls, None) is None,
+            "the pinned run made fewer kink calls than the recorded one")
+
+
+def train_argv(stage, data, tmp, steps, *extra):
+    module, args = TRAIN_STAGES[stage]
+    name = stage.split()[0]
+    return module, [*args, "--data", data, "--max-iter", str(steps),
+                    "--show-loss-freq", str(max(steps - 1, 1)),
+                    "--snapshot-dir", os.path.join(tmp, f"snaps_{name}"),
+                    *extra]
+
+
+def first_batch(job):
+    """The raw batch of the job's first step, as its pipeline yields it."""
+    it = job.pipeline.iterate(epochs=1)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+class FirstStep(NamedTuple):
+    state: trainer.TrainState
+    loss: torch.Tensor
+    grads: list  # in trainer.tree_leaves order
+    raw: dict
+    kinks: object  # Kinks recorded, or pinned_kinks' counts
+
+
+def first_step(job, pin=None):
+    """Step 0 of ``job`` on its device up to its gradients: its params, its
+    first batch, the step's generator. It records the kinks it chose, or
+    with ``pin`` (another run's Kinks) takes those."""
+    state = trainer.init_state(job.params, job.optimizer)
+    raw = first_batch(job)
+    with (recorded_kinks() if pin is None else pinned_kinks(pin)) as kinks:
+        loss, grads = trainer.value_and_grad(
+            job.loss, state.params, raw,
+            augment.generator(trainer.STEP_STREAM, job.options["seed"], 0))
+    return FirstStep(state, loss, grads, raw, kinks)
+
+
+def float64_job(module, argv):
+    """The stage's job on the CPU in float64: its params and preprocessed
+    features cast up, the same batch and draws."""
+    base = module.fuse_preprocess
+
+    def fused(loss_fn, preprocess_fn, cfg):
+        def preprocess(cfg, raw, noise):
+            return {k: v.double() if v.is_floating_point() else v
+                    for k, v in preprocess_fn(cfg, raw, noise).items()}
+        return base(loss_fn, preprocess, cfg)
+
+    module.fuse_preprocess = fused
+    try:
+        job = module.setup(argv + ["--device", "cpu"])
+    finally:
+        module.fuse_preprocess = base
+    return job._replace(params=trainer.tree_map(torch.Tensor.double,
+                                                job.params))
+
+
+def grad_errs(stage, paths, grads, want):
+    """max |grads - want| / max |want| over each tensor, summarized: the
+    last layers' worst, the worst tensor, the median over tensors."""
+    errs = {}
+    for path, g, w in zip(paths, grads, want):
+        w = w.double()
+        scale = w.abs().max().item()
+        require(scale > 0, f"{stage}: no gradient reaches {path}")
+        errs[path] = (g.cpu().double() - w).abs().max().item() / scale
+    last = [e for p, e in errs.items()
+            if p.startswith(TRAIN_LAST_LAYERS[stage])]
+    require(last, f"{stage}: no last layer among {list(errs)}")
+    worst = max(errs, key=errs.get)
+    return {"last_layers": max(last), "worst": errs[worst],
+            "worst_tensor": worst,
+            "median": float(np.median(list(errs.values())))}
+
+
+def kinks_differ(a, b):
+    """Leaky ReLU inputs and max-pool outputs whose choice differs between
+    two runs' Kinks."""
+    return {"relu": sum(int((x.cpu() != y.cpu()).sum())
+                        for x, y in zip(a.relu, b.relu)),
+            "pool": sum(int((x.cpu() != y.cpu()).sum())
+                        for x, y in zip(a.pool, b.pool))}
+
+
+def ulp(x):
+    """The float32 spacing at |x|."""
+    a = x.float().abs()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+
+
+def adam_direction(g):
+    """Adam's first update over -lr: the bias-corrected m / (sqrt(v) + eps)
+    of step 1 is g / (|g| + eps)."""
+    g = g.cpu().double()
+    return g / (g.abs() + 1e-8)
+
+
+def first_update_err(card, card_job, cpu, cpu_job):
+    """Step 0's update, each side from its own gradients (torch's foreach
+    Adam on the card, the single-tensor one on the CPU). Adam's first update
+    is -lr * u(g), so the card's params must differ from the CPU's by
+    -lr * (u(g_card) - u(g_cpu)), within 4 float32 ulps + 1e-3 lr. Returns
+    the worst error over that bound."""
+    lr = card_job.optimizer.schedule(0)
+    for side, job in ((card, card_job), (cpu, cpu_job)):
+        job.optimizer.apply(side.state.opt_state, side.state.params,
+                            side.grads, 0)
+    worst = 0.0
+    for p, q, g, h in zip(trainer.tree_leaves(card.state.params),
+                          trainer.tree_leaves(cpu.state.params),
+                          card.grads, cpu.grads):
+        q = q.detach().double()
+        err = (p.detach().cpu().double() - q
+               + lr * (adam_direction(g) - adam_direction(h))).abs()
+        worst = max(worst, (err / (4 * ulp(q) + 1e-3 * lr)).max().item())
+    return worst
+
+
+def first_step_vs_cpu(stage, module, argv):
+    """Step 0 of the stage on the card held to the port's CPU run of the
+    same params, batch of 8 and noise: the loss, the last layers' gradients,
+    through kink flips every other gradient, and the update each side makes
+    from its own gradients. The card's gradients are also held to the same
+    step in float64 on the CPU that takes the card's choice at every leaky
+    ReLU and max pool, with the inputs where float64 would have chosen
+    otherwise counted, and how near their kink they lay."""
+    t0 = time.perf_counter()
+    card_job = module.setup(argv)
+    cpu_job = module.setup(argv + ["--device", "cpu"])
+    card, cpu = first_step(card_job), first_step(cpu_job)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = first_step(float64_job(module, argv), pin=card.kinks)
+    float64_s = time.perf_counter() - t0
+    for k, v in card.raw.items():
+        require(torch.equal(v.cpu(), cpu.raw[k]), f"first batch differs: {k}")
+    paths = trainer.tree_paths(card.state.params)
+    return {"loss": card.loss.item(), "loss_cpu": cpu.loss.item(),
+            "loss_float64": exact.loss.item(),
+            "loss_rel_err": abs(card.loss.item() - cpu.loss.item())
+            / abs(cpu.loss.item()),
+            "grad_err_of_max": grad_errs(stage, paths, card.grads, cpu.grads),
+            "grad_err_of_max_vs_float64_on_card_kinks": grad_errs(
+                stage, paths, card.grads, exact.grads),
+            "leaky_relu_inputs": sum(b.numel() for b in card.kinks.relu),
+            "max_pool_outputs": sum(i.numel() for i in card.kinks.pool),
+            "card_kinks_vs_float64": exact.kinks,
+            "card_kinks_vs_cpu": kinks_differ(card.kinks, cpu.kinks),
+            "first_update_err_over_bound": first_update_err(
+                card, card_job, cpu, cpu_job),
+            "cpu_side_s": cpu_s, "float64_s": float64_s}
+
+
+def require_first_step(stage, s):
+    vs_cpu = s["grad_err_of_max"]
+    kinks = s["card_kinks_vs_float64"]
+    require(s["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and vs_cpu["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+            and vs_cpu["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+            and vs_cpu["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX
+            and s["grad_err_of_max_vs_float64_on_card_kinks"]["worst"]
+            <= TRAIN_GRAD_RTOL_OF_MAX
+            and kinks["relu_flip_margin"] <= TRAIN_KINK_MARGIN
+            and kinks["pool_flip_margin"] <= TRAIN_KINK_MARGIN
+            and s["first_update_err_over_bound"] <= 1.0,
+            f"{stage}: first step differs from the CPU's or from float64: "
+            f"{s}")
+
+
+def adam_vs_float64(stage, module, argv):
+    """ADAM_STEPS train steps on the card on one batch, with a new LR (the
+    stage's reference values) at every step, each update held to Adam
+    written out in float64 on the CPU from the same params and the card's
+    own gradients: params, first and second moments. Returns the LRs and,
+    per tensor kind, the worst error over its bound."""
+    job = module.setup(argv + ["--lr-iter", *ADAM_LR_ITER[stage]])
+    state = trainer.init_state(job.params, job.optimizer)
+    raw = first_batch(job)
+    ref = [{"params": p.detach().cpu().double()}
+           for p in trainer.tree_leaves(state.params)]
+    for r in ref:
+        r["exp_avg"] = torch.zeros_like(r["params"])
+        r["exp_avg_sq"] = torch.zeros_like(r["params"])
+        r["g_max"] = torch.zeros_like(r["params"])
+    worst = dict.fromkeys(("params", "exp_avg", "exp_avg_sq"), 0.0)
+    lrs = []
+    for t in range(1, ADAM_STEPS + 1):
+        _, grads = trainer.value_and_grad(
+            job.loss, state.params, raw,
+            augment.generator(trainer.STEP_STREAM, job.options["seed"],
+                              t - 1))
+        lrs.append(job.optimizer.schedule(state.step))
+        job.optimizer.apply(state.opt_state, state.params, grads, state.step)
+        state = state._replace(step=state.step + 1)
+        moments = state.opt_state.state_dict()["state"]
+        rel = ADAM_RTOL * t
+        for i, (p, g, r) in enumerate(zip(trainer.tree_leaves(state.params),
+                                          grads, ref)):
+            g = g.cpu().double()
+            r["g_max"] = torch.maximum(r["g_max"], g.abs())
+            r["exp_avg"] = 0.9 * r["exp_avg"] + 0.1 * g
+            r["exp_avg_sq"] = 0.999 * r["exp_avg_sq"] + 0.001 * g * g
+            r["params"] = r["params"] - lrs[-1] * (
+                r["exp_avg"] / (1 - 0.9 ** t)) / (
+                (r["exp_avg_sq"] / (1 - 0.999 ** t)).sqrt() + 1e-8)
+            bounds = {
+                "params": 4 * t * ulp(r["params"])
+                + ADAM_UPDATE_ATOL * sum(lrs),
+                "exp_avg": rel * (r["exp_avg"].abs() + r["g_max"])
+                + t * F32_SUBNORMAL,
+                "exp_avg_sq": rel * (r["exp_avg_sq"] + r["g_max"] ** 2)
+                + t * F32_SUBNORMAL}
+            got = {"params": p.detach(), **moments[i]}
+            for k, bound in bounds.items():
+                err = (got[k].cpu().double() - r[k]).abs() / bound
+                worst[k] = max(worst[k], err.max().item())
+    return {"lr": lrs, "err_over_bound": worst}
+
+
+def repeated_batch(module, argv, steps):
+    """Losses of ``steps`` train steps on the card on one batch with one
+    noise draw (step 0's), each step taking the last one's params."""
+    job = module.setup(argv)
+    state = trainer.init_state(job.params, job.optimizer)
+    step = trainer.make_train_step(job.loss, job.optimizer)
+    raw = first_batch(job)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, raw, (job.options["seed"], 0))
+        losses.append(m["loss"])
+    return [float(v) for v in losses], state
+
+
+def profile_posenet_step(module, argv, steps=3):
+    """torch.profiler over ``steps`` PoseNet train steps after two warm-up
+    steps: shares of the window spent in conv forward and backward kernels,
+    and idle; the host ops that took longest, and the host's waits on the
+    device (scalar reads, synchronizations)."""
+    job = module.setup(argv)
+    state = trainer.init_state(job.params, job.optimizer)
+    step = trainer.make_train_step(job.loss, job.optimizer)
+    raw = first_batch(job)
+    for i in range(2):
+        state, _ = step(state, raw, (0, i))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(steps):
+            state, _ = step(state, raw, (0, 2 + i))
+        end.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+
+    def device_us(evt, total):
+        name = ("" if total else "self_") + "device_time_total"
+        old = ("" if total else "self_") + "cuda_time_total"
+        return getattr(evt, name, None) or getattr(evt, old, 0.0)
+
+    averages = prof.key_averages()
+    by_op = {e.key: device_us(e, True) for e in averages}
+    busy = sum(device_us(e, False) for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    top = sorted(averages, key=lambda e: -device_us(e, False))[:8]
+    host = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
+    waits = {e.key: e.count for e in averages if e.key in (
+        "aten::_local_scalar_dense", "cudaStreamSynchronize",
+        "cudaDeviceSynchronize", "cudaMemcpyAsync")}
+    require(busy > 0, "the profiler saw no device time")
+    return {"steps": steps, "window_ms": window_us / 1e3,
+            "busy_share": busy / window_us,
+            "idle_share": 1.0 - busy / window_us,
+            "conv_forward_share": by_op.get("aten::convolution", 0.0)
+            / window_us,
+            "conv_backward_share": by_op.get("aten::convolution_backward",
+                                             0.0) / window_us,
+            "top_device_ms": {e.key[:60]: device_us(e, False) / 1e3 / steps
+                              for e in top},
+            "top_host_ms": {e.key[:60]: e.self_cpu_time_total / 1e3 / steps
+                            for e in host},
+            "host_waits": {k: n / steps for k, n in waits.items()}}
+
+
+def states_equal(a, b):
+    """Params, Adam state and step counter equal bit for bit."""
+    if a.step != b.step:
+        return False
+    if not all(torch.equal(x, y) for x, y in zip(
+            trainer.tree_leaves(a.params), trainer.tree_leaves(b.params))):
+        return False
+    sa, sb = a.opt_state.state_dict(), b.opt_state.state_dict()
+    return all(torch.equal(v, sb["state"][i][k])
+               for i, s in sa["state"].items() for k, v in s.items())
+
+
+def phase_train(dev):
+    """The four trainers' CLIs on the card at full width (phase 7); returns
+    the kernel launches of their runs (train_posenet's in-training eval)."""
+    rng = np.random.default_rng(4)
+    launches = {"flood_fill": 0, "decode_upsampled": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train.bin")
+        eval_data = os.path.join(tmp, "eval.bin")
+        write_rhd_file(data, TRAIN_RECORDS, rng)
+        write_rhd_file(eval_data, TRAIN_RECORDS, rng)
+        for stage in TRAIN_STAGES:
+            module, argv = train_argv(stage, data, tmp, TRAIN_STEPS)
+            extra = ["--eval-data", eval_data,
+                     "--eval-freq", str(TRAIN_STEPS // 2),
+                     "--eval-batches", "2"] if stage == "posenet" else []
+            log_path = os.path.join(tmp, stage.split()[0] + ".jsonl")
+            floodfill.launches = 0
+            decode.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with timed_steps() as events, recorded_decodes() as decodes:
+                state = module.main(argv + extra + ["--metrics-log",
+                                                    log_path])
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            counts = {"flood_fill": floodfill.launches,
+                      "decode_upsampled": decode.launches}
+            peak = torch.cuda.max_memory_allocated(dev)
+            require_exact_f32()
+            require(state.step == TRAIN_STEPS, f"{stage}: step {state.step}")
+            ms = [s.elapsed_time(e) for s, e in events]
+            require(len(ms) == TRAIN_STEPS, f"{stage}: {len(ms)} steps timed")
+            rows = [json.loads(line) for line in open(log_path)]
+            losses = [r["loss"] for r in rows if "loss" in r]
+            require(len(losses) == 2 and all(np.isfinite(losses)),
+                    f"{stage}: losses {losses}")
+            if stage == "posenet":
+                require(counts["decode_upsampled"] > 0,
+                        "train_posenet's in-training eval never launched "
+                        "the decode kernel")
+                with torch.inference_mode():
+                    for sm, factor, got in decodes:
+                        require(torch.equal(
+                            got, keypoints.decode_upsampled_torch(sm, factor)),
+                            "decode differs from its twin on train_posenet's "
+                            "eval scoremaps")
+                        require(torch.equal(
+                            decode.decode_upsampled_cuda(sm, factor), got),
+                            "decode kernel not reproducible")
+                evals = [r for r in rows if "eval_epe_mean_px" in r]
+                require([r["step"] for r in evals]
+                        == [TRAIN_STEPS // 2, TRAIN_STEPS],
+                        f"in-training evals at {evals}")
+            for k in launches:
+                launches[k] += counts[k]
+
+            # step 0 on the card against the CPU; the repeated-batch descent
+            vs_cpu = first_step_vs_cpu(stage, module, argv)
+            adam = adam_vs_float64(stage, module, argv)
+            repeated, _ = repeated_batch(module, argv, TRAIN_STEPS)
+            med = float(np.median(ms[3:]))
+            line = {"train": stage, "batch": TRAIN_BATCH,
+                    "steps": TRAIN_STEPS, "ms_per_step_median": med,
+                    "ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / med,
+                    "peak_mem_bytes": peak, "loss_first": losses[0],
+                    "loss_last": losses[-1], "main_s": host_s,
+                    "launches": counts, "first_step_vs_cpu": vs_cpu,
+                    "adam_vs_float64": adam,
+                    "repeated_batch_loss": [repeated[0], repeated[-1]]}
+            if stage == "posenet":
+                line["eval_decodes_checked"] = len(decodes)
+                line["profile"] = profile_posenet_step(module, argv)
+            log(json.dumps(line))
+            require_first_step(stage, vs_cpu)
+            require(max(adam["err_over_bound"].values()) <= 1.0,
+                    f"{stage}: the card's Adam differs from float64's: {adam}")
+            if stage in ("posenet", "lifting proposed"):
+                require(repeated[-1] < repeated[0], f"{stage}: loss did not "
+                        f"fall on a repeated batch: {repeated}")
+        phase_train_resume(tmp, data)
+    require_exact_f32()
+    return launches
+
+
+def phase_train_resume(tmp, data):
+    """train_posenet: 3 steps + --resume 3 steps equals 6 straight steps bit
+    for bit, under deterministic algorithms. It runs in a child process:
+    deterministic cuBLAS needs CUBLAS_WORKSPACE_CONFIG before cuBLAS starts,
+    and the other phases keep cuBLAS's default workspace."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), RESUME_CHILD, tmp, data],
+        env=env, capture_output=True, text=True, timeout=600)
+    sys.stdout.write(child.stdout)
+    sys.stderr.write(child.stderr)
+    require(child.returncode == 0,
+            f"the resume check's child process exited {child.returncode}")
+
+
+def train_resume_child(tmp, data):
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for label, argv in (
+            ("straight", train_argv("posenet", data, tmp, 6)[1]),
+            ("first", train_argv("posenet", data, os.path.join(tmp, "r"),
+                                 3)[1]),
+            ("resumed", train_argv("posenet", data, os.path.join(tmp, "r"),
+                                   6, "--resume")[1])):
+        runs[label] = train_posenet.main(argv)
+    require(runs["first"].step == 3, "the first run did not stop at 3")
+    require(states_equal(runs["straight"], runs["resumed"]),
+            "train_posenet: 3 + --resume 3 steps differ from 6 straight steps")
+    require_exact_f32()
+    log("train_posenet: 3 steps + --resume 3 == 6 straight steps, bit for bit "
+        "(params and Adam state; deterministic cuDNN, cuBLAS and torch "
+        "algorithms, in a child process)")
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -686,8 +1305,9 @@ def main():
     kernels = phase_slice(dev, params_np, err)
     phase_times(dev, params_np)
     eval_launches = phase_eval(dev, params_np, err)
+    train_launches = phase_train(dev)
     for k in kernels:
-        k["launches"] += eval_launches[k["name"]]
+        k["launches"] += eval_launches[k["name"]] + train_launches[k["name"]]
         k["max_abs_err"] = err[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -697,4 +1317,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RESUME_CHILD]:
+        train_resume_child(*sys.argv[2:4])
+    else:
+        main()

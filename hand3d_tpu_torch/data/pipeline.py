@@ -1,0 +1,174 @@
+"""Host -> device input pipeline with background prefetch (counterpart of
+hand3d_tpu/data/pipeline.py).
+
+A daemon thread slices raw record batches out of the memmap (pinned for an
+asynchronous copy when the device is a CUDA device) and pushes them to a
+bounded queue; the consumer copies them to the device and, unless it yields
+raw records, preprocesses them there. Queue depth 2 overlaps host IO with
+device compute. Every epoch is reshuffled, in the JAX package's order
+exactly; the augmentation draws come from one CPU generator per (seed,
+epoch, step). One process reads the whole dataset (no ``process_shard``),
+and the C++ record streamer of the JAX package (``use_native``) is not
+ported.
+"""
+
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from hand3d_tpu_torch.data import augment
+from hand3d_tpu_torch.data.preprocess import (draw_noise, preprocess_rhd,
+                                              preprocess_stb)
+from hand3d_tpu_torch.data.rhd import RHDDataset
+
+# first word of the pipeline's generators, apart from the train step's
+DATA_STREAM = 0
+PREFETCH = 2  # host-side queue depth
+
+
+class _ProducerError:
+    """Queue sentinel carrying the producer thread's exception to the
+    consumer, which would otherwise block in q.get() forever."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+def epoch_indices(num_samples, batch_size, shuffle, seed, drop_remainder=True,
+                  process_shard=(0, 1)):
+    """Batched index arrays of one epoch, equal to the JAX package's.
+
+    ``process_shard=(i, n)``: the i-th of n disjoint strided slices of the
+    (identically seeded) epoch permutation, each cut to floor(N / n) so all
+    processes run the same number of steps an epoch.
+    """
+    idx = np.arange(num_samples)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(idx)
+    pidx, pcount = process_shard
+    if pcount > 1:
+        idx = idx[pidx::pcount][: num_samples // pcount]
+    if drop_remainder:
+        n = (len(idx) // batch_size) * batch_size
+        idx = idx[:n]
+    else:
+        pad = (-len(idx)) % batch_size
+        # np.resize tiles idx cyclically, which also covers
+        # batch_size > 2 * num_samples
+        idx = np.concatenate([idx, np.resize(idx, pad)]) if pad else idx
+    return idx.reshape(-1, batch_size)
+
+
+def host_tensors(raw, device):
+    """A raw numpy batch as contiguous host tensors, pinned for an
+    asynchronous copy when ``device`` is a CUDA device."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in raw.items()}
+    if device.type == "cuda":
+        out = {k: v.pin_memory() for k, v in out.items()}
+    return out
+
+
+class InputPipeline:
+    """Iterates preprocessed device batches from an RHD/STB dataset.
+
+    Args:
+      dataset: RHDDataset or STBDataset.
+      cfg: PreprocessConfig (selects derived features and augmentations).
+      batch_size: per-step batch.
+      seed: shuffle and augmentation seed.
+      yield_raw: yield the raw record tensors on the device, for train steps
+        that preprocess inside the loss (``train.trainer.fuse_preprocess``).
+      device: where the batches go.
+    """
+
+    def __init__(self, dataset, cfg, batch_size, seed=0, yield_raw=False, *,
+                 device):
+        self.dataset = dataset
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.seed = seed
+        self.yield_raw = yield_raw
+        self.device = torch.device(device)
+        self._preprocess = (preprocess_rhd if isinstance(dataset, RHDDataset)
+                            else preprocess_stb)
+
+    def _emit(self, raw, epoch, step):
+        if self.yield_raw:
+            return raw
+        noise = None
+        if self.cfg.needs_rng:
+            gen = augment.generator(DATA_STREAM, self.seed, epoch, step)
+            noise = draw_noise(self.cfg, raw, gen)
+        return self._preprocess(self.cfg, raw, noise)
+
+    def steps_per_epoch(self):
+        steps = len(self.dataset) // self.batch_size
+        if steps == 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} exceeds the dataset "
+                f"({len(self.dataset)} records): every epoch would yield "
+                "zero batches")
+        return steps
+
+    def __iter__(self):
+        return self.iterate(epochs=1)
+
+    def iterate(self, epochs=None, start_epoch=0, skip_steps=0):
+        """Yield feature dicts; ``epochs=None`` iterates forever.
+
+        ``start_epoch`` / ``skip_steps`` resume the stream mid-run: the first
+        batch is step ``skip_steps`` of epoch ``start_epoch``, with the
+        shuffle order and augmentation draws an uninterrupted run had there.
+        """
+        spe = self.steps_per_epoch()  # validates the batch size
+        if not 0 <= skip_steps < spe:
+            raise ValueError(f"skip_steps {skip_steps} outside an epoch of "
+                             f"{spe} steps (fold whole epochs into "
+                             "start_epoch)")
+        q = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def producer():
+            try:
+                epoch = start_epoch
+                while not stop.is_set() and (
+                        epochs is None or epoch < start_epoch + epochs):
+                    batches = epoch_indices(len(self.dataset),
+                                            self.batch_size, True,
+                                            self.seed + epoch)
+                    first = skip_steps if epoch == start_epoch else 0
+                    for step in range(first, len(batches)):
+                        if stop.is_set():
+                            return
+                        raw = host_tensors(
+                            self.dataset.raw_batch(batches[step]),
+                            self.device)
+                        q.put((epoch, step, raw))
+                    epoch += 1
+                q.put(None)
+            except Exception as e:  # handed to the consumer, which raises
+                q.put(_ProducerError(e))
+
+        threading.Thread(target=producer, daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, _ProducerError):
+                    raise RuntimeError("input-pipeline producer thread "
+                                       "failed") from item.exc
+                epoch, step, raw = item
+                raw = {k: v.to(self.device, non_blocking=True)
+                       for k, v in raw.items()}
+                yield self._emit(raw, epoch, step)
+        finally:
+            stop.set()
+            # drain, so a producer blocked in q.put sees the stop flag
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break

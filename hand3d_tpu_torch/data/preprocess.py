@@ -1,5 +1,5 @@
-"""Batched preprocessing on the device: raw records -> eval features
-(counterpart of hand3d_tpu/data/preprocess.py).
+"""Batched preprocessing on the device: raw records -> training and eval
+features (counterpart of hand3d_tpu/data/preprocess.py).
 
 The derived-data graph of data/BinaryDbReader.py:126-459 and
 data/BinaryDbReaderSTB.py:96-410 in torch, on whatever device the raw
@@ -8,13 +8,16 @@ pixels, palm-vs-wrist keypoints, the hand side from part-pixel counts, the
 visible-extent crop size with its clamps and non-finite fallbacks, and the
 exact f32 cam_mat update under cropping.
 
-Configs whose ``needs_rng`` holds (hue, noise, random crop, scoremap
-dropout) belong to training and raise NotImplementedError; nothing skips an
-augmentation silently.
+A config whose ``needs_rng`` holds (hue, uv and crop noise, random crop,
+scoremap dropout) takes the draws of ``draw_noise`` as ``noise``: they are
+made on a CPU generator, and the preprocessing applies them on the batch's
+device (``data/augment.py``). Such a config without draws raises; nothing
+skips an augmentation silently.
 """
 
 import torch
 
+from hand3d_tpu_torch.data import augment
 from hand3d_tpu_torch.data.codec import RHD_IMAGE_SIZE, STB_IMAGE_SIZE
 from hand3d_tpu_torch.ops.canonical import canonical_trafo, flip_right_hand
 from hand3d_tpu_torch.ops.image import (create_gaussian_maps,
@@ -29,12 +32,56 @@ STB_CAM_MAT = [[822.79041, 0.0, 318.47345], [0.0, 822.79041, 250.31296],
                [0.0, 0.0, 1.0]]
 
 
-def _require_no_rng(cfg):
-    if cfg.needs_rng:
-        raise NotImplementedError(
-            "this config needs random augmentation (hue, noise, random crop "
-            "or scoremap dropout), which belongs to the training slice of "
-            "the port and is not ported yet")
+def draw_noise(cfg, raw, generator):
+    """The draws of ``cfg``'s augmentations for the raw batch ``raw`` (RHD's
+    42 keypoints or STB's 21), as CPU tensors from the CPU ``generator``:
+
+      uv [B, kp, 2]          coord-uv noise, N(0, 2.5) cut at 2 sigma
+      hue [B, 1, 1]          hue delta, U[-0.1, 0.1)
+      crop_center [B, 2]     crop-center noise, N(0, 20) cut at 2 sigma
+      crop_scale [B]         crop-scale factor, U[1, 1.2)
+      crop_offset [B, 2]     crop-offset noise, N(0, 10) cut at 2 sigma
+      crop_rows, crop_cols   random-crop corners [B] (RHD)
+      scoremap_keep          kept scoremap channels, [B, 1, 1, 21] bool
+
+    Only the entries ``cfg`` turns on are drawn, in this order
+    (BinaryDbReader.py:160-367 for the reference's draws).
+    """
+    b, kp = raw["kp_xyz"].shape[:2]
+    noise = {}
+    if cfg.coord_uv_noise:
+        noise["uv"] = augment.truncated_normal(generator, (b, kp, 2),
+                                               cfg.coord_uv_noise_sigma)
+    if cfg.hue_aug:
+        noise["hue"] = augment.draw_hue(generator, b, cfg.hue_aug_max)
+    if cfg.crop_center_noise:
+        noise["crop_center"] = augment.truncated_normal(
+            generator, (b, 2), cfg.crop_center_noise_sigma)
+    if cfg.crop_scale_noise:
+        noise["crop_scale"] = augment.uniform(generator, (b,), 1.0, 1.2)
+    if cfg.crop_offset_noise:
+        noise["crop_offset"] = augment.truncated_normal(
+            generator, (b, 2), cfg.crop_offset_noise_sigma)
+    if cfg.random_crop_to_size:
+        size = (cfg.random_crop_size, cfg.random_crop_size)
+        noise["crop_rows"], noise["crop_cols"] = augment.draw_crop_offsets(
+            generator, b, tuple(raw["image"].shape[1:3]), size)
+    if cfg.scoremap_dropout:
+        noise["scoremap_keep"] = augment.draw_channel_keep(
+            generator, b, 21, cfg.scoremap_dropout_prob)
+    return noise
+
+
+def _noise_on(cfg, noise, device):
+    """``noise`` on ``device``; a config that augments must be given it."""
+    if not cfg.needs_rng:
+        return {}
+    if noise is None:
+        raise ValueError(
+            "this config augments at random (hue, noise, random crop or "
+            "scoremap dropout): pass its draws, "
+            "noise=draw_noise(cfg, raw, generator)")
+    return {k: v.to(device) for k, v in noise.items()}
 
 
 def _xyz_representations(kp_xyz21, flip_cond=None):
@@ -70,16 +117,19 @@ def _uv_to_crop(uv, center, scale, crop_size):
     return torch.stack([u, v], -1)
 
 
-def _hand_crop_features(cfg, image, uv21, vis21, cam_mat, image_size):
+def _hand_crop_features(cfg, image, uv21, vis21, cam_mat, image_size, noise):
     """Ground-truth hand crop with its uv and intrinsics
     (BinaryDbReader.py:268-346): centered at keypoint 12, sized by the
     visible-keypoint extent (clamped to [50, 500] px, 200 where not finite),
-    scale clamped to [1, 10]."""
+    scale clamped to [1, 10], with the optional center, scale and offset
+    noise of ``noise``."""
     crop_size = cfg.crop_size
     crop_center = uv21[:, 12].flip(-1)  # (row, col)
     crop_center = torch.where(
         torch.isfinite(crop_center).all(-1, keepdim=True), crop_center,
         torch.zeros_like(crop_center))
+    if cfg.crop_center_noise:
+        crop_center = crop_center + noise["crop_center"]
 
     # visible-extent bounding box, clamped to the image
     coord_hw = uv21.flip(-1)
@@ -96,6 +146,10 @@ def _hand_crop_features(cfg, image, uv21, vis21, cam_mat, image_size):
                                  crop_size_best,
                                  torch.full_like(crop_size_best, 200.0))
     scale = torch.clamp(crop_size / crop_size_best, 1.0, 10.0)
+    if cfg.crop_scale_noise:
+        scale = scale * noise["crop_scale"]
+    if cfg.crop_offset_noise:
+        crop_center = crop_center + noise["crop_offset"]
 
     # intrinsics: K' = T(-center * scale + half) @ S(scale) @ K (:325-346),
     # exact f32 (precision.exact_f32 keeps TF32 matmuls off on the card)
@@ -118,21 +172,28 @@ def _hand_crop_features(cfg, image, uv21, vis21, cam_mat, image_size):
     }
 
 
-def _gaussian_scoremap(cfg, uv21, vis21, size):
-    """Ground-truth scoremaps (BinaryDbReader.py:348-367)."""
-    return create_gaussian_maps(uv21.flip(-1), size, cfg.sigma, vis21)
+def _gaussian_scoremap(cfg, uv21, vis21, size, noise):
+    """Ground-truth scoremaps with the optional channel dropout
+    (BinaryDbReader.py:348-367)."""
+    scoremap = create_gaussian_maps(uv21.flip(-1), size, cfg.sigma, vis21)
+    if cfg.scoremap_dropout:
+        scoremap = augment.scoremap_channel_dropout(scoremap,
+                                                    noise["scoremap_keep"])
+    return scoremap
 
 
-def preprocess_rhd(cfg, raw):
+def preprocess_rhd(cfg, raw, noise=None):
     """RHD raw record batch -> feature dict.
 
     Args:
-      cfg: PreprocessConfig without random augmentation.
+      cfg: PreprocessConfig.
       raw: dict of tensors on one device, as ``RHDDataset.raw_batch`` makes
         them: kp_xyz [B,42,3] f32, kp_uv [B,42,2] f32, cam_mat [B,3,3] f32,
         image [B,320,320,3] u8, hand_parts [B,320,320] u8, kp_vis [B,42] u8.
+      noise: ``draw_noise(cfg, raw, generator)``, required iff
+        ``cfg.needs_rng``.
     """
-    _require_no_rng(cfg)
+    noise = _noise_on(cfg, noise, raw["kp_xyz"].device)
     kp_xyz = raw["kp_xyz"].to(torch.float32)
     # the reference casts uv to int32 and back before any use (:149-152)
     kp_uv = raw["kp_uv"].to(torch.float32).to(torch.int32).to(torch.float32)
@@ -154,8 +215,12 @@ def preprocess_rhd(cfg, raw):
                             kp_vis[:, 1:21],
                             (kp_vis[:, 21] | kp_vis[:, 33])[:, None],
                             kp_vis[:, 22:]], 1)
+    if cfg.coord_uv_noise:
+        kp_uv = kp_uv + noise["uv"]
 
     image = raw["image"].to(torch.float32) / 255.0 - 0.5
+    if cfg.hue_aug:
+        image = augment.random_hue(image, noise["hue"])
     hand_mask_fg = parts > 1
     data = {
         "image": image,
@@ -191,6 +256,18 @@ def preprocess_rhd(cfg, raw):
                 "keypoint_uv21": uv21 * scale_uv,
                 "keypoint_vis21": vis21}
 
+    if cfg.random_crop_to_size:
+        # segmentation-training mode (:382-392): the crop invalidates every
+        # other item
+        stacked = torch.cat([image, parts[..., None].to(torch.float32),
+                             data["hand_mask"].to(torch.float32)], -1)
+        size = (cfg.random_crop_size, cfg.random_crop_size)
+        cropped = augment.random_crop_hw(stacked, noise["crop_rows"],
+                                         noise["crop_cols"], size)
+        return {"image": cropped[..., :3],
+                "hand_parts": cropped[..., 3].to(torch.int32),
+                "hand_mask": cropped[..., 4:].to(torch.int32)}
+
     data["keypoint_xyz21"] = kp_xyz21
     data["keypoint_vis21"] = vis21
     data["keypoint_uv21"] = uv21
@@ -198,7 +275,7 @@ def preprocess_rhd(cfg, raw):
 
     if cfg.hand_crop:
         crop = _hand_crop_features(cfg, image, uv21, vis21, cam_mat,
-                                   RHD_IMAGE_SIZE)
+                                   RHD_IMAGE_SIZE, noise)
         crop.pop("_crop_center")
         data.update(crop)
         scoremap_size = (cfg.crop_size, cfg.crop_size)
@@ -206,7 +283,7 @@ def preprocess_rhd(cfg, raw):
         scoremap_size = RHD_IMAGE_SIZE
     if cfg.render_scoremap:
         data["scoremap"] = _gaussian_scoremap(cfg, data["keypoint_uv21"],
-                                              vis21, scoremap_size)
+                                              vis21, scoremap_size, noise)
     return data
 
 
@@ -217,23 +294,26 @@ def _extrapolate_wrist(arr):
     return torch.cat([wrist[:, None], arr[:, 1:]], 1)
 
 
-def preprocess_stb(cfg, raw):
+def preprocess_stb(cfg, raw, noise=None):
     """STB raw record batch -> feature dict (BinaryDbReaderSTB.py:96-343).
 
     xyz arrives in mm (scaled to meters); keypoints are reordered by
     STB_KP_PERM; with use_wrist_coord the wrist is extrapolated from the
     palm; the intrinsics are dataset constants; every hand is a left hand,
     and the canonical frame has no right-hand flip. ``scale_to_size`` does
-    not apply to STB and is ignored, as in the JAX package.
+    not apply to STB and is ignored, as is ``random_crop_to_size``, as in the
+    JAX package.
 
     Args:
-      cfg: PreprocessConfig without random augmentation.
+      cfg: PreprocessConfig.
       raw: dict of tensors on one device, as ``STBDataset.raw_batch`` makes
         them: kp_xyz [B,21,3] f32 (mm), kp_uv_vis [B,21,3] f32,
         image [B,480,640,3] u8.
+      noise: ``draw_noise(cfg, raw, generator)``, required iff
+        ``cfg.needs_rng``.
     """
-    _require_no_rng(cfg)
     dev = raw["kp_xyz"].device
+    noise = _noise_on(cfg, noise, dev)
     perm = torch.tensor(STB_KP_PERM, device=dev)
     b = raw["kp_xyz"].shape[0]
     kp_xyz21 = raw["kp_xyz"].to(torch.float32)[:, perm] / 1000.0
@@ -246,8 +326,12 @@ def preprocess_stb(cfg, raw):
         uv21 = _extrapolate_wrist(uv21)
         vis21 = torch.cat([(vis21[:, 16] | vis21[:, 0])[:, None],
                            vis21[:, 1:]], 1)
+    if cfg.coord_uv_noise:
+        uv21 = uv21 + noise["uv"]
 
     image = raw["image"].to(torch.float32) / 255.0 - 0.5
+    if cfg.hue_aug:
+        image = augment.random_hue(image, noise["hue"])
     cam_mat = torch.tensor(STB_CAM_MAT, dtype=torch.float32,
                            device=dev).expand(b, 3, 3)
     data = {
@@ -265,9 +349,9 @@ def preprocess_stb(cfg, raw):
         # for the crop extent (:228-231)
         uv_for_crop = uv21 if cfg.use_wrist_coord else _extrapolate_wrist(uv21)
         crop = _hand_crop_features(cfg, image, uv_for_crop, vis21, cam_mat,
-                                   STB_IMAGE_SIZE)
+                                   STB_IMAGE_SIZE, noise)
         # the uv in the crop are the original uv21, mapped with the crop's
-        # center and scale (:266-271)
+        # effective (noise-shifted) center and scale (:266-271)
         center = crop.pop("_crop_center")
         crop["keypoint_uv21"] = _uv_to_crop(uv21, center, crop["crop_scale"],
                                             cfg.crop_size)
@@ -277,5 +361,5 @@ def preprocess_stb(cfg, raw):
         scoremap_size = STB_IMAGE_SIZE
     if cfg.render_scoremap:
         data["scoremap"] = _gaussian_scoremap(cfg, data["keypoint_uv21"],
-                                              vis21, scoremap_size)
+                                              vis21, scoremap_size, noise)
     return data

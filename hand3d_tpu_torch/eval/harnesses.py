@@ -11,7 +11,8 @@ device:
   * eval_full_pipeline  <- eval_full.py (image -> 3D, m, + 20-50 mm AUC)
 
 Each takes a TF-layout numpy param tree (``weights.load_npz`` or
-``weights.random_params``) and an explicit ``device``; on a CUDA device the
+``weights.random_params``), or a torch tree already on the device (a
+training run's), and an explicit ``device``; on a CUDA device the
 cascade's two kernels run, and TF32 is turned off first
 (``precision.exact_f32``). Each returns a dict of metrics; the reference's
 values are in BASELINE.md rows 1-13.
@@ -27,6 +28,7 @@ import torch
 
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.data.config import PreprocessConfig
+from hand3d_tpu_torch.data.pipeline import host_tensors
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd, preprocess_stb
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.eval.metrics import EvalUtil, calc_auc
@@ -66,15 +68,6 @@ def eval_batches(n, batch_size):
         if valid < batch_size:
             idx = np.concatenate([idx, np.full(batch_size - valid, n - 1)])
         yield idx, valid
-
-
-def host_tensors(raw, device):
-    """A raw numpy batch as contiguous host tensors, pinned for an
-    asynchronous copy when ``device`` is a CUDA device."""
-    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in raw.items()}
-    if device.type == "cuda":
-        out = {k: v.pin_memory() for k, v in out.items()}
-    return out
 
 
 def run_step(step, pre, cfg, params, host, device):
@@ -138,8 +131,21 @@ def _run(dataset, cfg, batch_size, step, params, util_feed, device,
 
 
 def _device_params(params, device):
+    """``params`` on ``device``, TF32 off there first. A TF-layout numpy tree
+    is converted; a torch tree already on ``device`` (a training run's, for
+    an in-training eval) is used as it is, with no copy: the harnesses run
+    under ``torch.inference_mode``, so no gradient reaches it."""
     device = precision.exact_f32(device)
-    return params_from_jax(params, device), device
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    if not isinstance(leaf, torch.Tensor):
+        return params_from_jax(params, device), device
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device() if device.type == "cuda" else None)
+    if leaf.device.type != device.type or leaf.device.index != index:
+        raise ValueError(f"params lie on {leaf.device}, not on {device}")
+    return params, device
 
 
 def _root_relative_dists(pred_normed, data):

@@ -1,12 +1,13 @@
 """PosePrior + ViewpointNet: canonical 3D lifting from 2D scoremaps
-(counterpart of hand3d_tpu/models/poseprior.py; inference only).
+(counterpart of hand3d_tpu/models/poseprior.py).
 
 PosePrior (ColorHandPose3DNetwork.py:249-272): 3 conv pairs (stride 1, then
 stride 2) with [32, 64, 128] channels, 32x32x21 -> 4x4x128, NHWC flatten,
 concat the hand-side one-hot, FC(512) x 2, FC to 21*3 canonical coords.
 ViewpointNet (:274-334): the same tower with [64, 128, 256] channels,
-FC 256 -> 128, three scalar heads -> Rodrigues rotation matrix. Dropout is
-the identity at inference and is left out.
+FC 256 -> 128, three scalar heads -> Rodrigues rotation matrix. The FC
+dropouts (keep 0.8 in PosePrior, 0.75 in ViewpointNet) act only with
+``train=True``; their masks come from a CPU ``torch.Generator``.
 
 The standalone PosePriorNetwork with the reference's five lifting variants
 (nets/PosePriorNetwork.py:30-234) is composed from the same pieces.
@@ -81,21 +82,21 @@ def init_viewpoint(rng):
     return params
 
 
-def apply_poseprior(params, scoremap, hand_side):
+def apply_poseprior(params, scoremap, hand_side, train=False, generator=None):
     """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 21, 3] canonical."""
     x = _tower_apply(params, scoremap, hand_side, POSE_CHANS)
-    x = nn.dense_relu(x, params["fc_rel0"])
-    x = nn.dense_relu(x, params["fc_rel1"])
+    x = nn.dropout(nn.dense_relu(x, params["fc_rel0"]), 0.8, train, generator)
+    x = nn.dropout(nn.dense_relu(x, params["fc_rel1"]), 0.8, train, generator)
     if "fc_bottleneck" in params:
         x = nn.dense(x, params["fc_bottleneck"])
     return nn.dense(x, params["fc_xyz"]).reshape(-1, NUM_KP, 3)
 
 
-def apply_viewpoint(params, scoremap, hand_side):
+def apply_viewpoint(params, scoremap, hand_side, train=False, generator=None):
     """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 3, 3] rotation."""
     x = _tower_apply(params, scoremap, hand_side, VP_CHANS)
-    x = nn.dense_relu(x, params["fc_vp0"])
-    x = nn.dense_relu(x, params["fc_vp1"])
+    x = nn.dropout(nn.dense_relu(x, params["fc_vp0"]), 0.75, train, generator)
+    x = nn.dropout(nn.dense_relu(x, params["fc_vp1"]), 0.75, train, generator)
     return rodrigues_rot_mat(nn.dense(x, params["fc_vp_ux"]),
                              nn.dense(x, params["fc_vp_uy"]),
                              nn.dense(x, params["fc_vp_uz"]))
@@ -134,18 +135,27 @@ class PosePriorNetwork:
             params[VIEWPOINT_SCOPE] = init_viewpoint(rng)
         return params
 
-    def apply(self, params, scoremap, hand_side):
+    def apply(self, params, scoremap, hand_side, train=False, generator=None):
         """scoremap [B, 256, 256, 21] (or already pooled [B, 32, 32, 21]) +
         hand side [B, 2] -> LiftingOutput (PosePriorNetwork.inference,
-        :59-95). A 256x256 map is average pooled 8x8 first (:61)."""
+        :59-95). A 256x256 map is average pooled 8x8 first (:61).
+
+        ``train=True`` turns the FC dropouts on; ``generator`` then draws
+        their masks, PosePrior's two before ViewpointNet's two. The
+        reference trained with them off (training_lifting.py:54-56 never
+        feeds its ``evaluation`` placeholder), and so do the trainers by
+        default.
+        """
         if scoremap.shape[1] != SCOREMAP_SIZE:
             scoremap = nn.avg_pool(scoremap.permute(0, 3, 1, 2), 8) \
                 .permute(0, 2, 3, 1)
-        pred = apply_poseprior(params[POSEPRIOR_SCOPE], scoremap, hand_side)
+        pred = apply_poseprior(params[POSEPRIOR_SCOPE], scoremap, hand_side,
+                               train, generator)
         if self.variant in ("direct", "bottleneck"):
             return LiftingOutput(pred, pred, None)
         if self.variant in ("local", "local_w_xyz_loss"):
             return LiftingOutput(bone_rel_trafo_inv(pred), pred, None)
-        rot_mat = apply_viewpoint(params[VIEWPOINT_SCOPE], scoremap, hand_side)
+        rot_mat = apply_viewpoint(params[VIEWPOINT_SCOPE], scoremap, hand_side,
+                                  train, generator)
         return LiftingOutput(lift_to_relative(pred, rot_mat, hand_side), pred,
                              rot_mat)

@@ -3,6 +3,8 @@
 Activations here are NCHW and conv weights OIHW (torch layout); the model
 modules convert at their NHWC boundaries and ``weights.params_from_jax``
 converts the TF-layout HWIO kernels once. Dense kernels stay [in, out].
+Dropout masks are drawn on a CPU ``torch.Generator`` and moved to the
+device, so a training step's masks do not depend on where it runs.
 Convolutions and matmuls go to cuDNN / cuBLAS, as the JAX package left them
 to XLA. The initializers are numpy so ``weights.random_params`` needs no
 torch RNG and no jax.
@@ -80,6 +82,32 @@ def dense(x, params):
 
 def dense_relu(x, params):
     return leaky_relu(dense(x, params))
+
+
+def keep_mask(generator, keep_prob, shape, device):
+    """Bernoulli(keep_prob) keep mask of ``shape``, drawn on the CPU
+    ``generator`` and moved to ``device``: the card and the CPU draw the
+    same mask at the same step."""
+    return (torch.rand(shape, generator=generator) < keep_prob).to(device)
+
+
+def dropout(x, keep_prob, train, generator=None):
+    """Inverted dropout gated on ``train`` (general.py:138-148): kept values
+    are scaled by 1 / keep_prob. The mask comes from ``generator``."""
+    if not train or keep_prob >= 1.0:
+        return x
+    mask = keep_mask(generator, keep_prob, x.shape, x.device)
+    return torch.where(mask, x / keep_prob, torch.zeros_like(x))
+
+
+def spatial_dropout(x, keep_prob, train, generator=None):
+    """Channel-wise inverted dropout of NHWC ``x``, one draw per (sample,
+    channel): noise shape [B, 1, 1, C] (general.py:150-160)."""
+    if not train or keep_prob >= 1.0:
+        return x
+    mask = keep_mask(generator, keep_prob, (x.shape[0], 1, 1, x.shape[3]),
+                     x.device)
+    return torch.where(mask, x / keep_prob, torch.zeros_like(x))
 
 
 # --- Initializers (numpy, TF layout) ----------------------------------------

@@ -25,10 +25,28 @@ def flat_to_tree(flat):
     return tree
 
 
+def tree_to_flat(tree, prefix=""):
+    """Inverse of :func:`flat_to_tree`."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            flat.update(tree_to_flat(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
 def load_npz(path):
     """Param tree of an .npz with '/'-joined keys (hand3d_tpu save_npz)."""
     with np.load(path) as data:
         return flat_to_tree({k: data[k] for k in data.files})
+
+
+def save_npz(path, tree):
+    """Write a TF-layout numpy tree as an .npz with '/'-joined keys, the
+    file ``hand3d_tpu.weights.load_npz`` and :func:`load_npz` read."""
+    np.savez(path, **tree_to_flat(tree))
 
 
 def params_from_jax(tree, device):
@@ -50,6 +68,19 @@ def params_from_jax(tree, device):
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         out[key] = torch.tensor(arr, device=device)
+    return out
+
+
+def params_to_jax(tree):
+    """Torch tree -> TF-layout float32 numpy tree, the inverse of
+    :func:`params_from_jax`: conv kernels go OIHW -> HWIO."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = params_to_jax(value)
+            continue
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        out[key] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
     return out
 
 

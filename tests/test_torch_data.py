@@ -204,11 +204,13 @@ def test_preprocess_stb_matches(bins, name):
                                   "crop_offset_noise", "scoremap_dropout",
                                   "random_crop_to_size"])
 def test_rng_configs_raise(bins, flag):
+    """A config that augments at random raises without its draws
+    (tests/test_torch_train_data.py holds it to JAX with them)."""
     cfg = PreprocessConfig(hand_crop=True, **{flag: True})
     raw = {k: torch.from_numpy(v) for k, v in _rhd_raw(bins).items()}
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="draw_noise"):
         preprocess.preprocess_rhd(cfg, raw)
     raw = STBDataset("evaluation", bins["stb"]).raw_batch([0])
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="draw_noise"):
         preprocess.preprocess_stb(
             cfg, {k: torch.from_numpy(v) for k, v in raw.items()})

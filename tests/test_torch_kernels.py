@@ -61,20 +61,34 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
 
 
 def test_port_runs_without_jax():
-    """The package and its CPU slice never import jax (the card machine has
-    none)."""
+    """The package, its CPU slice and a train step run with jax blocked (the
+    card machine has none): every module of the port imports."""
     code = (
-        "import sys, numpy as np\n"
+        "import sys, numpy as np, torch\n"
+        "sys.modules['jax'] = None  # any import of jax raises\n"
         "from hand3d_tpu_torch.serving import HandPoseEstimator\n"
         "from hand3d_tpu_torch.weights import random_params\n"
         "from hand3d_tpu_torch.cli import (eval2d, eval2d_gt_cropped,\n"
-        "                                  eval3d, eval_full)\n"
+        "                                  eval3d, eval_full, train_handsegnet,\n"
+        "                                  train_joint, train_lifting,\n"
+        "                                  train_posenet)\n"
+        "from hand3d_tpu_torch.data import augment, pipeline\n"
+        "from hand3d_tpu_torch.train import (checkpoints, loop, losses,\n"
+        "                                    schedule, trainer)\n"
+        "from hand3d_tpu_torch.utils import logging\n"
         "est = HandPoseEstimator(random_params(0), batch_size=1,\n"
         "                        input_hw=(32, 32), device='cpu')\n"
         "out = est.predict(np.zeros((1, 32, 32, 3), np.uint8))\n"
         "assert out['keypoint_uv21'].shape == (1, 21, 2)\n"
         "assert np.isfinite(out['keypoint_coord3d']).all()\n"
-        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'))\n")
+        "opt = trainer.make_optimizer([0.1], [])\n"
+        "state = trainer.init_state({'a': {'w': torch.ones(3)}}, opt)\n"
+        "state, m = trainer.make_train_step(\n"
+        "    lambda p, b, g: (p['a']['w'] * b['x']).sum() ** 2, opt)(\n"
+        "    state, {'x': torch.ones(3)}, (0, 0))\n"
+        "assert state.step == 1 and m['loss'].item() == 9.0\n"
+        "print(sorted(m for m, v in sys.modules.items()\n"
+        "             if m.split('.')[0] == 'jax' and v is not None))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -87,7 +87,9 @@ def test_cuda_entry_points_turn_tf32_off_first(tmp_path, fake_card, name):
 
 
 @pytest.mark.parametrize("cli", ["eval2d_gt_cropped", "eval2d", "eval3d",
-                                 "eval_full"])
+                                 "eval_full", "train_posenet",
+                                 "train_handsegnet", "train_lifting",
+                                 "train_joint"])
 def test_clis_default_to_cuda_and_refuse_a_missing_card(tmp_path, monkeypatch,
                                                         cli):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
