@@ -11,14 +11,20 @@ line is printed:
    a CUDA device is required;
 2. build: both CUDA kernels compiled from csrc/ with nvcc (sm_90a);
 3. kernel parity: each kernel against its plain PyTorch twin, bit for bit,
-   on synthetic masks and scoremaps at the cascade's shapes;
+   on synthetic masks and scoremaps at the cascade's shapes, at batches 1,
+   8, 32 and 128 (the flood fill spreads an image over a thread-block
+   cluster at small batch and runs one CTA an image at 128): blobs across
+   band boundaries, seeds on the first and last rows and off the image, a
+   serpentine that stops at num_passes, NaN, -0.0 / +0.0 ties and ties
+   between far rows in the decode;
 4. slice: HandPoseEstimator at full width (random weights from a seed) on
    240x320 images answers three requests; both kernels must have launched;
    the kernels must equal their twins on the slice's own tensors; the card's
    outputs are held to the port's CPU run (plain twins) by the flip-aware
    comparison of hand3d_tpu_torch.parity;
 5. times: CUDA-event times of the served slice and of each kernel beside its
-   twin at batches 1, 32 and 128;
+   twin and its bound at batches 1, 32 and 128, and of the flood fill on two
+   fixed masks (a hand-sized blob, a serpentine that runs every pass);
 6. eval: synthetic RHD (320x320) and STB (480x640) files in the reference's
    record layouts go through the five eval harnesses at their CLI batch
    sizes (eval2d_full_image with both scale_to_size settings, eval3d_lifting
@@ -95,8 +101,8 @@ NUM_PASSES = max(H, W) // 10
 FACTOR = 8  # 32x32 PoseNet scoremap -> 256x256 crop
 SLICE_BATCH = 8
 REQUESTS = (5, 8, 17)  # a partial, a full and a ragged multi-chunk request
-PARITY_FLOOD_BATCHES = (1, 8, 32)
-PARITY_DECODE_BATCHES = (1, 32)
+PARITY_FLOOD_BATCHES = (1, 8, 32, 128)
+PARITY_DECODE_BATCHES = (1, 8, 32, 128)
 TIME_BATCHES = (1, 32, 128)
 TIME_ITERS = {1: 30, 32: 10, 128: 5}
 # card vs CPU: scoremaps are ~1e-3 in size with random weights; cuDNN and
@@ -184,6 +190,20 @@ KERNELS = {
     "decode_upsampled": ("hand3d_tpu_torch/csrc/decode.cu",
                          "hand3d_tpu/ops/pallas/decode.py:36"),
 }
+# why no single PyTorch call computes the kernel's function (library_ms null)
+LIBRARY = {
+    "flood_fill": "none: max_pool2d is one pass of one axis; the fill repeats "
+                  "two of them and a mask to a fixed point",
+    "decode_upsampled": "none: F.interpolate's bilinear grid is not TF1's "
+                        "asymmetric one, and the argmax is a second call",
+}
+# the bounds: NVIDIA's data sheet of the H100 SXM, float32 outside the tensor
+# cores and HBM3; the operation counts are the Pallas kernels' CostEstimates
+# (decode.py:105, floodfill.py:125-126)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+FLOOD_OPS_PER_PX_PASS = 16
+DECODE_OPS_PER_VALUE = 6  # per source value and (a, b) offset
 
 
 def log(msg):
@@ -231,9 +251,23 @@ def phase_build():
                 log(f"  {line.strip()}")
 
 
+def serpentine(h, w):
+    """Lanes of 2 rows, 23 rows apart (more than the 21-row window), joined
+    at alternating ends: one corridor; at 240x320 it needs about 380 passes,
+    so the fill runs all of its max(H, W) // 10."""
+    det = np.zeros((h, w), np.float32)
+    for i, r in enumerate(range(0, h, 23)):
+        det[r:r + 2, :] = 1.0
+        c = w - 2 if i % 2 == 0 else 0
+        det[r:r + 25, c:c + 2] = 1.0
+    return det
+
+
 def flood_cases(b, rng):
     """[b, H, W] masks and seeds: two blobs, bridged, empty, a seed on
-    background 5 px from a blob, random noise."""
+    background 5 px from a blob, random noise, blobs across band boundaries
+    with seeds on the first, last and boundary rows, seeds off the image, a
+    serpentine."""
     cases = {}
     two = np.zeros((b, H, W), np.float32)
     two[:, 40:80, 40:90] = 1.0
@@ -252,18 +286,39 @@ def flood_cases(b, rng):
     noise = (rng.random((b, H, W)) > 0.6).astype(np.float32)
     seeds = np.stack([rng.integers(0, H, b), rng.integers(0, W, b)], 1)
     cases["random"] = (noise, seeds.astype(np.int32))
+    bands = (rng.random((b, H, W)) > 0.7).astype(np.float32)
+    rows = [0, H - 1] + [q * H // c for c in (2, 4, 8) for q in range(1, c)]
+    for r in rows[2:]:  # a blob across every band boundary
+        bands[:, max(r - 4, 0):r + 4, (r * 7) % W:(r * 7) % W + 30] = 1.0
+    cases["band_edges"] = (bands, np.stack(
+        [np.array(rows)[np.arange(b) % len(rows)], rng.integers(0, W, b)],
+        1).astype(np.int32))
+    off = np.array([[-1, 5], [H, 5], [5, -1], [5, W]], np.int32)
+    cases["seed_off_image"] = (noise, off[np.arange(b) % 4])
+    cases["serpentine"] = (np.repeat(serpentine(H, W)[None], b, 0),
+                           np.zeros((b, 2), np.int32))
     return cases
 
 
 def decode_cases(b, rng):
-    """[b, 32, 32, 21] scoremaps with exact ties, edge peaks and the
-    cascade's ~1e-3 value scale."""
+    """[b, 32, 32, 21] scoremaps with exact ties (far apart rows too), edge
+    peaks, the cascade's ~1e-3 value scale, NaN, infinities and -0.0 /
+    +0.0 ties."""
     sm = rng.standard_normal((b, 32, 32, 21)).astype(np.float32)
     sm[0, :, :, 0] = 0.0
     sm[0, 5, 5, 3] = sm[0, 20, 20, 3] = sm[0].max() + 1.0
     sm[-1, 31, 31, 4] = sm[-1, 0, 31, 5] = sm[-1, 31, 0, 6] = 10.0
     small = (rng.standard_normal((b, 32, 32, 21)) * 1e-3).astype(np.float32)
-    return {"ties_edges": sm, "small_values": small}
+    special = rng.standard_normal((b, 32, 32, 21)).astype(np.float32)
+    special[:, :, :, 0] = -1.0  # -0.0 then +0.0: a tie, the first wins
+    special[:, 3, 7, 0] = -0.0
+    special[:, 30, 2, 0] = 0.0
+    special[:, 9, 9, 1] = np.nan  # the first NaN wins
+    special[:, 31, 31, 1] = np.nan
+    special[:, :, :, 2] = -np.inf
+    special[:, 16, 4, 3] = np.inf  # inf * 0 in the clamped lerp is NaN
+    special[:, 1, 0, 7] = special[:, 30, 31, 7] = 50.0  # far rows, one value
+    return {"ties_edges": sm, "small_values": small, "special": special}
 
 
 def phase_kernel_parity(dev):
@@ -279,8 +334,11 @@ def phase_kernel_parity(dev):
             e = (got - want).abs().max().item()
             err["flood_fill"] = max(err["flood_fill"], e)
             require(torch.equal(got, want), f"flood fill differs: {name} B={b}")
+            passes = flood_passes(det_t, seed_t, NUM_PASSES)
             log(f"flood fill == twin: {name:18s} B={b:3d} "
-                f"({int(want.sum().item())} px kept)")
+                f"({int(want.sum().item())} px kept, passes up to "
+                f"{max(passes)}; cluster, clusters held: "
+                f"{floodfill.cluster_plan(b, H, W, dev)})")
     for b in PARITY_DECODE_BATCHES:
         for name, sm in decode_cases(b, rng).items():
             sm_t = torch.from_numpy(sm).to(dev)
@@ -292,6 +350,60 @@ def phase_kernel_parity(dev):
             require(torch.equal(got, want), f"decode differs: {name} B={b}")
             log(f"decode == twin:     {name:18s} B={b:3d}")
     return err
+
+
+def flood_passes(det, seed, num_passes):
+    """Passes the flood fill runs on each image of these inputs, counted by
+    running the twin's pass one at a time: the passes that change the map,
+    and the one that finds the fixed point, at most num_passes."""
+    b, h, w = det.shape
+    rows = torch.arange(h, device=det.device)[None, :, None]
+    cols = torch.arange(w, device=det.device)[None, None, :]
+    s = seed.long()
+    obj = ((rows == s[:, 0, None, None])
+           & (cols == s[:, 1, None, None])).to(torch.float32)
+    k, half = segmentation.DILATION_FILTER_SIZE, \
+        segmentation.DILATION_FILTER_SIZE // 2
+    active = torch.ones(b, dtype=torch.bool, device=det.device)
+    passes = torch.zeros(b, dtype=torch.int64, device=det.device)
+    for _ in range(num_passes):
+        passes += active
+        grown = F.max_pool2d(obj[:, None], (k, 1), 1, (half, 0))
+        new = det * F.max_pool2d(grown, (1, k), 1, (0, half))[:, 0]
+        active &= (new != obj).flatten(1).any(1)
+        obj = new
+        if not active.any():
+            break
+    return passes.tolist()
+
+
+def bound(ops, nbytes):
+    """The least time the card could take: the larger of the operations over
+    the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def flood_bound(det, seed, num_passes):
+    """Bound of one flood fill: each image's passes at 16 operations a pixel;
+    det read once, the result written once, the seeds read once."""
+    b, h, w = det.shape
+    passes = flood_passes(det, seed, num_passes)
+    out = bound(FLOOD_OPS_PER_PX_PASS * h * w * sum(passes),
+                2 * 4 * b * h * w + 8 * b)
+    out["passes"] = passes if b <= SLICE_BATCH else {
+        "sum": sum(passes), "min": min(passes), "max": max(passes)}
+    return out
+
+
+def decode_bound(sm, factor):
+    """Bound of one decode: 6 operations a source value and (a, b) offset;
+    the scoremap read once, the (row, col) pairs written once."""
+    b, h, w, k = sm.shape
+    return bound(DECODE_OPS_PER_VALUE * factor * factor * b * h * w * k,
+                 4 * b * h * w * k + 4 * b * k * 2)
 
 
 def slice_inputs(params, image, hand_side):
@@ -356,10 +468,13 @@ def phase_slice(dev, params_np, err):
     log("card vs CPU (flip-aware; atol scoremap "
         f"{SCOREMAP_ATOL}, coord3d {COORD3D_ATOL}, flip bound {FLIP_BOUND}): "
         + json.dumps(summary))
+    bounds = {"flood_fill": flood_bound(det, seed, NUM_PASSES),
+              "decode_upsampled": decode_bound(sm, FACTOR)}
     return [{"name": name, "route": "cuda", "source": KERNELS[name][0],
              "replaces": KERNELS[name][1], "launches": counts[name],
              "max_abs_err": err[name], "ms": ms[name][0],
-             "plain_ms": ms[name][1], "batch": SLICE_BATCH}
+             "plain_ms": ms[name][1], **bounds[name], "library_ms": None,
+             "library": LIBRARY[name], "batch": SLICE_BATCH}
             for name in KERNELS]
 
 
@@ -394,17 +509,48 @@ def phase_times(dev, params_np):
             est.params, torch.from_numpy(normalize_images(images)).to(dev),
             est.hand_side)
         kt = kernel_times(det, seed, sm)
+        fb = flood_bound(det, seed, NUM_PASSES)
         med = float(np.median(per_batch))
         log(json.dumps({
             "batch": b, "input_hw": [H, W], "slice_ms_per_batch_median": med,
             "slice_ms_per_batch": per_batch, "frames_per_s": b * 1000.0 / med,
             "flood_fill_ms": kt["flood_fill"][0],
             "flood_fill_plain_ms": kt["flood_fill"][1],
+            "flood_fill_bound_ms": fb["bound_ms"],
+            "flood_fill_bound_by": fb["bound_by"],
+            "flood_fill_passes": fb["passes"],
+            "flood_fill_cluster": floodfill.cluster_plan(b, H, W, dev),
             "decode_ms": kt["decode_upsampled"][0],
             "decode_plain_ms": kt["decode_upsampled"][1],
+            "decode_bound_ms": decode_bound(sm, FACTOR)["bound_ms"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}))
         del est
         torch.cuda.empty_cache()
+        fixed_mask_times(dev, b)
+
+
+def fixed_mask_times(dev, b, iters=20):
+    """The flood fill at [b, 240, 320] on two fixed masks: the hand-sized
+    blob of the two_blob case and a serpentine that runs all NUM_PASSES."""
+    masks = {"two_blob": flood_cases(1, np.random.default_rng(0))["two_blob"],
+             "serpentine": (serpentine(H, W)[None],
+                            np.zeros((1, 2), np.int32))}
+    for name, (det, seed) in masks.items():
+        det_t = torch.from_numpy(np.repeat(det[:1], b, 0)).to(dev)
+        seed_t = torch.from_numpy(np.repeat(seed[:1], b, 0)).to(dev)
+        got = floodfill.flood_fill_cuda(det_t, seed_t, NUM_PASSES)
+        want = segmentation.flood_fill_torch(det_t, seed_t, NUM_PASSES)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"flood fill differs on {name}")
+        fb = flood_bound(det_t, seed_t, NUM_PASSES)
+        log(json.dumps({
+            "flood_fill_mask": name, "batch": b, "input_hw": [H, W],
+            "ms": cuda_ms(lambda: floodfill.flood_fill_cuda(
+                det_t, seed_t, NUM_PASSES), iters),
+            "plain_ms": cuda_ms(lambda: segmentation.flood_fill_torch(
+                det_t, seed_t, NUM_PASSES), iters),
+            "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+            "passes": fb["passes"]}))
 
 
 def write_rhd_file(path, n, rng):

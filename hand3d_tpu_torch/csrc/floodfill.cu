@@ -6,134 +6,450 @@
 // clipped to the image, until the map stops changing or num_passes passes
 // have run. Extra passes past the fixed point are no-ops, so the early exit
 // equals the full trip count. The pass dilates first and masks after, so a
-// seed on a background pixel still grows into foreground within its window.
+// seed on a background pixel still grows into foreground within its window;
+// a seed outside the image grows nothing.
 //
-// What bounds it: a pass reads the whole map several times, so the map has
-// to stay on chip for all passes. As f32 a 240x320 map is 300 KB, more than
-// the 227 KB of shared memory a block may use. The values are binary, so the
-// kernel keeps det, obj and one scratch map as bit masks, 32 pixels a word
-// (240x320: 10 words a row, 9.6 KB a map). Device memory then sees one read
-// of det and one write of the result per image; the passes run in shared
-// memory. The work is tiny (about 50 word ops per word and pass), so with one
-// block per image it is latency-bound at small batch.
+// Bound on an H100 (67 TFLOP/s f32, 3.35 TB/s): the TPU kernel's count is 16
+// operations per pixel and pass (floodfill.py:125-126) against one read of
+// det and one write of the result, 614 KB per 240x320 image. At the cap of 32
+// passes it is bound by operations, 0.59 us an image; an input that needs
+// fewer passes moves the bound toward the 0.18 us of its bytes.
+//
+// The maps stay on chip for all passes as bit masks, 32 pixels a word
+// (240x320: 10 words a row, 9.6 KB a map). All arithmetic is integer, and
+// the result is unpacked to 0.0f / 1.0f, bit-equal to the f32 twin (max and
+// multiply of {0, 1} values are exact).
+//
+// What held the first design back: one block per image, so at batch 1 one
+// SM of 132 did all the work; det was packed one dependent 4-byte load and
+// ballot at a time; each pass paid two divisions, ten shift pairs and 21
+// shared loads per word and two block barriers; unpacking paid a division
+// per pixel.
 //
 // Design:
-//  * one block per image; a warp packs 32 neighbouring pixels into a word
-//    with __ballot_sync (coalesced reads of det);
-//  * horizontal dilation by +-10 is word shifts with carry from the
-//    neighbouring words (10 < 32, so only the two neighbours reach);
-//  * vertical dilation is an OR over the 21 rows, then AND with det;
-//  * __syncthreads_or(changed) ends the loop at the fixed point;
-//  * the result is unpacked to 0.0f / 1.0f, bit-equal to the f32 twin
-//    (max and multiply of {0, 1} values are exact).
-// All arithmetic is integer, so no rounding mode is involved.
+//  * one image is spread over a thread-block cluster: the largest of up to
+//    8 CTAs (the portable limit) whose B clusters the card holds at once
+//    (cudaOccupancyMaxActiveClusters, which chip_smoke.py logs), launched
+//    with cudaLaunchKernelEx. Each CTA owns a band of at least 10
+//    rows, so a band's 10-row halos lie in its two neighbours' bands. At
+//    large batch a cluster is one CTA, one image;
+//  * each CTA keeps obj with 10-row margins. As it writes the first and last
+//    10 rows of its band, it also stores them into its neighbours' margins
+//    through distributed shared memory, so the next pass reads only its own
+//    shared memory. obj is double-buffered: a pass reads one buffer and
+//    writes the other, so one cluster barrier a pass orders it (one block
+//    barrier in a cluster of one). A CTA that changed a word sets the pass's
+//    flag in every CTA of the cluster (three flags in rotation, each cleared
+//    by its owner two passes after use), and all CTAs leave on one pass;
+//  * a pass ORs vertically first (21 rows), then horizontally, then masks
+//    with det. The vertical reach is a log-step tree in registers: a thread
+//    loads the 28 words of one column that 8 consecutive rows need, ORs pairs
+//    at distance 1, 2 and 4 (y4[i] covers rows i..i+7), then
+//    out[i] = y4[i] | y4[i + 8] | y4[i + 13]. The horizontal reach of +-10
+//    is a log-step tree (1, 2, 4, then 3 gives 0..10) on each side, with the
+//    neighbouring word carried in by __funnelshift_r / __funnelshift_l and
+//    zeros beyond the edge; a thread walks a segment of a row, keeping the
+//    previous, current and next words in registers;
+//  * det is packed from 16-byte loads, up to four in flight per lane, eight
+//    lanes OR-ing their nibbles into a word by shuffles; the result is
+//    unpacked with 16-byte stores. Rows whose width is not a multiple of 4
+//    floats, or a misaligned tensor, take 4-byte loads and ballots. No loop
+//    divides: work is walked in two levels from positions computed once.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kHalf = 10;  // 21-tap window, general.py:236
+constexpr int kRun = 8;    // rows a thread ORs in the vertical tree
+constexpr int kTaps = kRun + 2 * kHalf;
 constexpr int kThreads = 512;
-constexpr size_t kMaxSmem = 232448;  // per block on Hopper
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxCluster = 8;  // portable cluster size
+constexpr int kMaxSmem = 232448;  // per block on Hopper
+constexpr int kDefaultSmem = 48 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
-                  float* __restrict__ out, int H, int W, int words,
-                  int num_passes) {
-  extern __shared__ uint32_t smem[];
-  const int n = H * words;  // words per bit map
-  uint32_t* det_bits = smem;
-  uint32_t* obj = smem + n;
-  uint32_t* tmp = smem + 2 * n;
+// obj is held with margins: row g of the image is row g - r0 + kHalf of a
+// CTA's buffer, whose rows [0, kHalf) and [nr + kHalf, nr + 2 kHalf) take
+// the neighbours' halos (zero beyond the image), and kRun more rows let the
+// last run of the vertical tree load past them.
+__host__ __device__ inline int ext_rows(int band_cap) {
+  return band_cap + 2 * kHalf + kRun;
+}
 
-  const int b = blockIdx.x;
-  const float* det_b = det + static_cast<size_t>(b) * H * W;
-  float* out_b = out + static_cast<size_t>(b) * H * W;
+// Shared memory of one CTA in words: det and the vertical OR for `band_cap`
+// rows, two obj buffers with margins, three flags.
+__host__ __device__ inline long long smem_words(int band_cap, int words) {
+  return (2ll * band_cap + 2ll * ext_rows(band_cap)) * words + 3;
+}
+
+// Row band [r0, r1) of rank `rank` in a cluster of `C` over H rows: bands
+// differ by at most one row.
+__device__ __forceinline__ int band_start(int rank, int C, int H) {
+  return static_cast<int>(static_cast<long long>(rank) * H / C);
+}
+
+// 0..10 columns to the right (higher bits, then the next word)
+__device__ __forceinline__ uint32_t reach_right(uint32_t lo, uint32_t hi) {
+  lo |= __funnelshift_r(lo, hi, 1);
+  hi |= hi >> 1;
+  lo |= __funnelshift_r(lo, hi, 2);
+  hi |= hi >> 2;
+  lo |= __funnelshift_r(lo, hi, 4);  // 0..7
+  hi |= hi >> 4;
+  return lo | __funnelshift_r(lo, hi, 3);  // 0..10
+}
+
+// 0..10 columns to the left (lower bits, then the previous word)
+__device__ __forceinline__ uint32_t reach_left(uint32_t lo, uint32_t hi) {
+  hi |= __funnelshift_l(lo, hi, 1);
+  lo |= lo << 1;
+  hi |= __funnelshift_l(lo, hi, 2);
+  lo |= lo << 2;
+  hi |= __funnelshift_l(lo, hi, 4);
+  lo |= lo << 4;
+  return hi | __funnelshift_l(lo, hi, 3);
+}
+
+__device__ __forceinline__ uint32_t nibble(float4 v) {
+  return (v.x != 0.0f ? 1u : 0u) | (v.y != 0.0f ? 2u : 0u) |
+         (v.z != 0.0f ? 4u : 0u) | (v.w != 0.0f ? 8u : 0u);
+}
+
+// Pack rows [r0, r1) of det_b into bit words: bit j of word c of a row is
+// column 32 c + j; bits beyond W are 0.
+__device__ void pack_rows(const float* __restrict__ det_b, uint32_t* bits,
+                          int r0, int r1, int W, int words, bool vec) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-
-  // pack det: one warp per word, bit j of word i = column 32 * (i % words) + j
-  for (int i = warp; i < n; i += nwarps) {
-    const int r = i / words;
-    const int c = (i - r * words) * 32 + lane;
-    const bool fg = c < W && det_b[static_cast<size_t>(r) * W + c] != 0.0f;
-    const uint32_t word = __ballot_sync(0xffffffffu, fg);
-    if (lane == 0) det_bits[i] = word;
+  if (vec) {
+    // float4 q of a row covers columns 4q..4q+3: word q / 8, bits 4 (q % 8)
+    const int nq = W >> 2;
+    for (int r = r0 + warp; r < r1; r += nwarps) {
+      const float4* src = reinterpret_cast<const float4*>(
+          det_b + static_cast<size_t>(r) * W);
+      uint32_t* row = bits + (r - r0) * words;
+      for (int q0 = 0; q0 < nq; q0 += 4 * 32) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int q = q0 + u * 32 + lane;
+          v[u] = q < nq ? __ldg(src + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t word = nibble(v[u]) << (4 * (lane & 7));
+          word |= __shfl_xor_sync(0xffffffffu, word, 1);
+          word |= __shfl_xor_sync(0xffffffffu, word, 2);
+          word |= __shfl_xor_sync(0xffffffffu, word, 4);
+          const int c = ((q0 + u * 32) >> 3) + (lane >> 3);
+          if ((lane & 7) == 0 && c < words) row[c] = word;
+        }
+      }
+    }
+  } else {
+    for (int r = r0 + warp; r < r1; r += nwarps) {
+      const float* src = det_b + static_cast<size_t>(r) * W;
+      uint32_t* row = bits + (r - r0) * words;
+      for (int c = 0; c < words; ++c) {
+        const int col = 32 * c + lane;
+        const uint32_t word =
+            __ballot_sync(0xffffffffu, col < W && src[col] != 0.0f);
+        if (lane == 0) row[c] = word;
+      }
+    }
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) obj[i] = 0u;
+}
+
+// Unpack rows [r0, r1) of bit words into 0.0f / 1.0f.
+__device__ void unpack_rows(const uint32_t* bits, float* __restrict__ out_b,
+                            int r0, int r1, int W, int words, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (vec) {
+    const int nq = W >> 2;
+    for (int r = r0 + warp; r < r1; r += nwarps) {
+      float4* dst =
+          reinterpret_cast<float4*>(out_b + static_cast<size_t>(r) * W);
+      const uint32_t* row = bits + (r - r0) * words;
+      for (int q = lane; q < nq; q += 32) {
+        const uint32_t nib = row[q >> 3] >> (4 * (q & 7));
+        __stcs(dst + q, make_float4(nib & 1u ? 1.0f : 0.0f,
+                                    nib & 2u ? 1.0f : 0.0f,
+                                    nib & 4u ? 1.0f : 0.0f,
+                                    nib & 8u ? 1.0f : 0.0f));
+      }
+    }
+  } else {
+    for (int r = r0 + warp; r < r1; r += nwarps) {
+      float* dst = out_b + static_cast<size_t>(r) * W;
+      const uint32_t* row = bits + (r - r0) * words;
+      for (int c = 0; c < words; ++c) {
+        const int col = 32 * c + lane;
+        if (col < W) dst[col] = (row[c] >> lane) & 1u ? 1.0f : 0.0f;
+      }
+    }
+  }
+}
+
+// grid (C, B), cluster (C, 1, 1): CTA `rank` of cluster b owns a band of
+// image b's rows. Every CTA lays out its shared memory alike, for band_cap
+// rows, so a neighbour's buffer is at the same offset in its CTA.
+__global__ void __launch_bounds__(kThreads, 1)
+flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
+                  float* __restrict__ out, int H, int W, int words,
+                  int num_passes, int band_cap, bool vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int r0 = band_start(rank, C, H);
+  const int r1 = band_start(rank + 1, C, H);
+  const int nr = r1 - r0;
+
+  extern __shared__ uint32_t smem[];
+  const int n = band_cap * words;
+  const int n_ext = ext_rows(band_cap) * words;
+  uint32_t* det_bits = smem;
+  uint32_t* vert = smem + n;
+  uint32_t* const obj[2] = {smem + 2 * n, smem + 2 * n + n_ext};
+  uint32_t* flags = smem + 2 * n + 2 * n_ext;  // [3]
+
+  const float* det_b = det + static_cast<size_t>(b) * H * W;
+  float* out_b = out + static_cast<size_t>(b) * H * W;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+
+  pack_rows(det_b, det_bits, r0, r1, W, words, vec);
+  for (int i = t; i < 2 * n_ext; i += T) obj[0][i] = 0u;
+  if (t < 3) flags[t] = 0u;
   __syncthreads();
   const int sr = seed[2 * b];
   const int sc = seed[2 * b + 1];
-  if (threadIdx.x == 0 && sr >= 0 && sr < H && sc >= 0 && sc < W)
-    obj[sr * words + (sc >> 5)] = 1u << (sc & 31);
-  __syncthreads();
+  // the seed, in this CTA's rows or margins
+  if (t == 0 && sr >= 0 && sr < H && sc >= 0 && sc < W &&
+      sr >= r0 - kHalf && sr < r1 + kHalf)
+    obj[0][(sr - r0 + kHalf) * words + (sc >> 5)] = 1u << (sc & 31);
 
-  bool changed = true;
-  for (int pass = 0; pass < num_passes && changed; ++pass) {
-    // horizontal: tmp[c] = OR of obj[c-10 .. c+10] within the row
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int wi = i % words;
-      const uint32_t cur = obj[i];
-      const uint32_t prev = wi > 0 ? obj[i - 1] : 0u;
-      const uint32_t next = wi + 1 < words ? obj[i + 1] : 0u;
-      uint32_t acc = cur;
+  // the neighbours' buffers: this band's first and last 10 rows are the
+  // margins of the band above and below; the band above holds up_nr rows
+  const int up_nr = rank > 0 ? r0 - band_start(rank - 1, C, H) : 0;
+  const int above = rank > 0 ? rank - 1 : rank;
+  const int below = rank + 1 < C ? rank + 1 : rank;
+  uint32_t* const up[2] = {cluster.map_shared_rank(obj[0], above),
+                           cluster.map_shared_rank(obj[1], above)};
+  uint32_t* const down[2] = {cluster.map_shared_rank(obj[0], below),
+                             cluster.map_shared_rank(obj[1], below)};
+
+  // work is walked in two levels, (row group, word) or (row, segment),
+  // from positions computed once here
+  const int cols = min(words, T);
+  const int row_lanes = T / cols;
+  const int my_c = t % cols;
+  const int my_row = t / cols;  // idle if >= row_lanes
+  const int runs = my_row < row_lanes ? (nr + kRun - 1) / kRun : 0;
+  int nseg = min(max(T / nr, 1), words);  // segments of a row
+  const int seg_len = (words + nseg - 1) / nseg;
+  nseg = (words + seg_len - 1) / seg_len;
+  const int seg_rows = T / nseg;  // rows in flight
+  const int h_row = t / nseg;  // idle if >= seg_rows
+  const int h_c0 = (t - h_row * nseg) * seg_len;
+  const int h_c1 = min(h_c0 + seg_len, words);
+  const int h_nr = h_row < seg_rows ? nr : 0;
+
+  cluster.sync();  // every CTA's det, obj[0] and flags are ready
+  int cur = 0;
+  int fi = 0;  // flag of this pass; (fi + 2) % 3 is cleared after it
+  for (int pass = 0; pass < num_passes; ++pass) {
+    const uint32_t* own = cur ? obj[1] : obj[0];
+    // vertical: vert[r] = OR of obj rows r - 10 .. r + 10 (margins included)
+    for (int run = my_row; run < runs; run += row_lanes) {
+      const int ra = run * kRun;
+      for (int c = my_c; c < words; c += cols) {
+        const uint32_t* col = own + ra * words + c;  // row ra - 10 + kHalf
+        uint32_t x[kTaps];
 #pragma unroll
-      for (int d = 1; d <= kHalf; ++d) {
-        acc |= (cur >> d) | (next << (32 - d));  // column c + d
-        acc |= (cur << d) | (prev >> (32 - d));  // column c - d
+        for (int i = 0; i < kTaps; ++i) x[i] = col[i * words];
+#pragma unroll
+        for (int i = 0; i + 1 < kTaps; ++i) x[i] |= x[i + 1];  // 2 rows
+#pragma unroll
+        for (int i = 0; i + 3 < kTaps; ++i) x[i] |= x[i + 2];  // 4
+        uint32_t y4[kTaps - 7];
+#pragma unroll
+        for (int i = 0; i + 7 < kTaps; ++i) y4[i] = x[i] | x[i + 4];  // 8
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          // y4[i] | y4[i + 8] covers rows i..i+15, y4[i + 13] i+13..i+20
+          if (ra + i < nr)
+            vert[(ra + i) * words + c] = y4[i] | y4[i + 8] | y4[i + 13];
+        }
       }
-      tmp[i] = acc;
     }
     __syncthreads();
-    // vertical: OR over rows r-10 .. r+10, then mask; each thread owns its
-    // words of obj in this phase
-    bool local = false;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int r = i / words;
-      const int wi = i - r * words;
-      const int r0 = max(r - kHalf, 0);
-      const int r1 = min(r + kHalf, H - 1);
-      uint32_t acc = 0u;
-      for (int rr = r0; rr <= r1; ++rr) acc |= tmp[rr * words + wi];
-      const uint32_t grown = acc & det_bits[i];
-      local |= grown != obj[i];
-      obj[i] = grown;
+    // horizontal along a segment of a row, then mask; own rows only. Rows
+    // within 10 of the band's edges also go to the neighbours' margins of
+    // the same buffer, which they read only in the next pass.
+    uint32_t* next = cur ? obj[0] : obj[1];
+    uint32_t* next_up = cur ? up[0] : up[1];
+    uint32_t* next_down = cur ? down[0] : down[1];
+    bool changed = false;
+    for (int r = h_row; r < h_nr; r += seg_rows) {
+      const uint32_t* vrow = vert + r * words;
+      const uint32_t* drow = det_bits + r * words;
+      const uint32_t* orow = own + (r + kHalf) * words;
+      uint32_t* nrow = next + (r + kHalf) * words;
+      uint32_t* up_row = r < kHalf && rank > 0
+          ? next_up + (up_nr + kHalf + r) * words : nullptr;
+      uint32_t* down_row = r >= nr - kHalf && rank + 1 < C
+          ? next_down + (r - nr + kHalf) * words : nullptr;
+      uint32_t prev = h_c0 > 0 ? vrow[h_c0 - 1] : 0u;
+      uint32_t mid = vrow[h_c0];
+      for (int c = h_c0; c < h_c1; ++c) {
+        const uint32_t nxt = c + 1 < words ? vrow[c + 1] : 0u;
+        const uint32_t grown =
+            (reach_right(mid, nxt) | reach_left(prev, mid)) & drow[c];
+        changed |= grown != orow[c];
+        nrow[c] = grown;
+        if (up_row) up_row[c] = grown;
+        if (down_row) down_row[c] = grown;
+        prev = mid;
+        mid = nxt;
+      }
     }
-    changed = __syncthreads_or(local);
+    bool any;
+    if (C == 1) {
+      any = __syncthreads_or(changed);
+    } else {
+      if (__any_sync(0xffffffffu, changed) && (t & 31) == 0)
+        for (int q = 0; q < C; ++q)
+          *cluster.map_shared_rank(flags + fi, q) = 1u;
+      cluster.sync();
+      any = *static_cast<volatile uint32_t*>(flags + fi) != 0u;
+      if (t == 0) flags[fi == 0 ? 2 : fi - 1] = 0u;
+      fi = fi == 2 ? 0 : fi + 1;
+    }
+    cur ^= 1;
+    if (!any) break;
   }
+  unpack_rows((cur ? obj[1] : obj[0]) + kHalf * words, out_b, r0, r1, W,
+              words, vec);
+}
 
-  for (int p = threadIdx.x; p < H * W; p += blockDim.x) {
-    const int r = p / W;
-    const int c = p - r * W;
-    out_b[p] = (obj[r * words + (c >> 5)] >> (c & 31)) & 1u ? 1.0f : 0.0f;
+// A launch of B clusters of C CTAs with `smem` bytes each.
+void configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int C,
+               int B, int smem, cudaStream_t stream) {
+  cfg->gridDim = dim3(C, B);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+cudaError_t allow_smem(int smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(flood_fill_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// How many clusters of C CTAs the device can run at once, asked once per
+// (device, C, smem).
+cudaError_t clusters_held(int C, int smem, int dev, int* held) {
+  struct Entry {
+    int dev, C, smem, held;
+  };
+  static std::mutex mu;
+  static Entry seen[64];
+  static int n_seen = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].dev == dev && seen[i].C == C && seen[i].smem == smem) {
+      *held = seen[i].held;
+      return cudaSuccess;
+    }
   }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  configure(&cfg, attr, C, 1, smem, nullptr);
+  cudaError_t e = allow_smem(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(held, flood_fill_kernel, &cfg);
+  if (e == cudaSuccess && n_seen < 64) seen[n_seen++] = {dev, C, smem, *held};
+  return e;
+}
+
+// Cluster size C: the largest, up to 8, whose B clusters the card holds at
+// once (`held` of them), with bands of at least 10 rows so that a halo lies
+// in the neighbouring band; else 1, one CTA an image.
+cudaError_t plan(int B, int H, int words, int* C, int* held) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  *C = 1;
+  *held = 0;
+  for (int c = min(kMaxCluster, H / kHalf); e == cudaSuccess && c > 1; --c) {
+    const long long bytes = 4 * smem_words((H + c - 1) / c, words);
+    if (bytes > kMaxSmem) break;
+    e = clusters_held(c, static_cast<int>(bytes), dev, held);
+    if (e == cudaSuccess && *held >= B) {
+      *C = c;
+      break;
+    }
+  }
+  if (*C == 1) *held = 0;
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The cluster size h3d_flood_fill takes for [B, H, W], and how many such
+// clusters the card holds at once (0 for a cluster of one).
+int h3d_flood_fill_plan(int B, int H, int W, int* C, int* held) {
+  if (B <= 0 || H <= 0 || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(plan(B, H, (W + 31) / 32, C, held));
+}
+
 // det [B, H, W] f32, seed [B, 2] int32 (row, col), out [B, H, W] f32, all
 // contiguous device memory. Launches on `stream`; returns a cudaError_t.
 int h3d_flood_fill(const float* det, const int* seed, float* out, int B, int H,
                    int W, int num_passes, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || num_passes < 0)
+  if (B <= 0 || H <= 0 || W <= 0 || num_passes < 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int words = (W + 31) / 32;
-  const size_t smem = 3 * static_cast<size_t>(H) * words * sizeof(uint32_t);
+  int C = 1, held = 0;
+  cudaError_t e = plan(B, H, words, &C, &held);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int band_cap = (H + C - 1) / C;
+  const long long smem = 4 * smem_words(band_cap, words);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flood_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  flood_fill_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      det, seed, out, H, W, words, num_passes);
+  e = allow_smem(static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 16-byte loads and stores need rows of whole float4s on aligned tensors
+  const bool vec = W % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(det) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  configure(&cfg, attr, C, B, static_cast<int>(smem),
+            static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, flood_fill_kernel, det, seed, out, H, W, words,
+                         num_passes, band_cap, vec);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

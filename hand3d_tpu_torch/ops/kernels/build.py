@@ -7,6 +7,7 @@ the source and the flags, so an edited source is rebuilt at its next use. A
 failed build raises; nothing falls back to the plain PyTorch twins.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -14,6 +15,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -29,7 +32,7 @@ def find_nvcc():
     """Path of nvcc: on PATH, else under the CUDA home PyTorch detects."""
     path = shutil.which("nvcc")
     if path is None:
-        from torch.utils.cpp_extension import CUDA_HOME
+        from torch.utils.cpp_extension import CUDA_HOME  # imports setuptools
 
         if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
             path = os.path.join(CUDA_HOME, "bin", "nvcc")
@@ -84,3 +87,16 @@ def check(err, lib, what):
     if err != 0:
         msg = lib.h3d_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def on_device(device):
+    """A context in which ``device`` is the current CUDA device, for a
+    launch; a no-op when it already is (the common case costs no switch)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_stream(device):
+    """Raw handle of ``device``'s current stream, as the C entries take it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

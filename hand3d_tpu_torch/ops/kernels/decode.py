@@ -16,7 +16,7 @@ launches = 0  # kernel launches made by decode_upsampled_cuda
 @functools.cache
 def _lib():
     lib = build.load_kernel("decode")
-    lib.h3d_decode_upsampled.argtypes = [ctypes.c_void_p] * 2 \
+    lib.h3d_decode_upsampled.argtypes = [ctypes.c_void_p] * 3 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.h3d_decode_upsampled.restype = ctypes.c_int
     lib.h3d_error_string.argtypes = [ctypes.c_int]
@@ -24,7 +24,18 @@ def _lib():
     return lib
 
 
-def smem_bytes(h, w, factor):
+def overlay_path(factor):
+    """Power-of-two factors take the kernel's overlay path, the others its
+    table path (csrc/decode.cu)."""
+    return factor & (factor - 1) == 0
+
+
+def smem_bytes(h, w, k, factor):
+    """Least shared memory a block of the kernel needs."""
+    if overlay_path(factor):
+        # per-channel planes of a band's source rows: at least one row and
+        # the row below it, the plane stride odd
+        return 4 * k * ((min(h, 2) * w) | 1) + 16
     # the channel's h*w values + (lo, hi, weight) of every upsampled row/col
     return 4 * h * w + 12 * (h + w) * factor
 
@@ -49,18 +60,24 @@ def decode_upsampled_cuda(scoremap, factor):
         raise ValueError("decode_upsampled_cuda needs a contiguous tensor")
     b, h, w, k = scoremap.shape
     if factor < 1 or min(h, w) < 1 \
-            or smem_bytes(h, w, factor) > build.MAX_SMEM_BYTES \
+            or smem_bytes(h, w, k, factor) > build.MAX_SMEM_BYTES \
             or h * w * factor * factor >= 2**31:
         raise ValueError(f"decode_upsampled_cuda: unsupported {h}x{w} "
                          f"at factor {factor}")
     out = torch.empty((b, k, 2), dtype=torch.float32, device=scoremap.device)
     if b == 0 or k == 0:
         return out
+    # the overlay path's band keys [b * k] and per-image tickets [b], zeroed
+    # by the C entry on the stream
+    scratch = torch.empty(b * k + b, dtype=torch.int64,
+                          device=scoremap.device) \
+        if overlay_path(factor) else None
     lib = _lib()
-    with torch.cuda.device(scoremap.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.h3d_decode_upsampled(scoremap.data_ptr(), out.data_ptr(),
-                                       b, h, w, k, factor, stream)
+    with build.on_device(scoremap.device):
+        err = lib.h3d_decode_upsampled(
+            scoremap.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            b, h, w, k, factor, build.current_stream(scoremap.device))
     build.check(err, lib, "decode kernel")
     launches += 1
     return out

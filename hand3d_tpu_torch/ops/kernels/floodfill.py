@@ -19,14 +19,33 @@ def _lib():
     lib.h3d_flood_fill.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     lib.h3d_flood_fill.restype = ctypes.c_int
+    lib.h3d_flood_fill_plan.argtypes = [ctypes.c_int] * 3 \
+        + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.h3d_flood_fill_plan.restype = ctypes.c_int
     lib.h3d_error_string.argtypes = [ctypes.c_int]
     lib.h3d_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def smem_bytes(h, w):
-    # det, obj and a scratch map as bit masks, 32 pixels a word
-    return 3 * h * ((w + 31) // 32) * 4
+    """Shared memory of the kernel's one-CTA-per-image launch, as bit masks
+    of 32 pixels a word: det and the vertical OR for h rows, two obj buffers
+    of h + 28 rows (halo margins), three flags. A cluster's CTAs each hold
+    a band and need less."""
+    return 4 * ((2 * h + 2 * (h + 28)) * ((w + 31) // 32) + 3)
+
+
+def cluster_plan(b, h, w, device):
+    """(CTAs a cluster, clusters the card holds at once) that
+    ``flood_fill_cuda`` takes for [b, h, w] maps on the CUDA ``device``; a
+    cluster of one CTA, one image, reports (1, 0)."""
+    lib = _lib()
+    size, held = ctypes.c_int(), ctypes.c_int()
+    with build.on_device(device):
+        err = lib.h3d_flood_fill_plan(b, h, w, ctypes.byref(size),
+                                      ctypes.byref(held))
+    build.check(err, lib, "flood fill plan")
+    return size.value, held.value
 
 
 def flood_fill_cuda(detmap, seed_rc, num_passes):
@@ -52,18 +71,19 @@ def flood_fill_cuda(detmap, seed_rc, num_passes):
     if not (detmap.is_contiguous() and seed_rc.is_contiguous()):
         raise ValueError("flood_fill_cuda needs contiguous tensors")
     b, h, w = detmap.shape
-    if smem_bytes(h, w) > build.MAX_SMEM_BYTES or min(h, w) < 1:
-        raise ValueError(f"flood_fill_cuda: unsupported map size {h}x{w}")
+    if smem_bytes(h, w) > build.MAX_SMEM_BYTES or min(h, w) < 1 \
+            or b > 65535:
+        raise ValueError(f"flood_fill_cuda: unsupported shape {b}x{h}x{w}")
     if num_passes < 0:
         raise ValueError("num_passes must be >= 0")
     out = torch.empty_like(detmap)
     if b == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(detmap.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with build.on_device(detmap.device):
         err = lib.h3d_flood_fill(detmap.data_ptr(), seed_rc.data_ptr(),
-                                 out.data_ptr(), b, h, w, num_passes, stream)
+                                 out.data_ptr(), b, h, w, num_passes,
+                                 build.current_stream(detmap.device))
     build.check(err, lib, "flood fill kernel")
     launches += 1
     return out

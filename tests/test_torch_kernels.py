@@ -130,3 +130,100 @@ def test_decode_kernel_matches_twin(cuda, shape, factor):
     want = keypoints.decode_upsampled_torch(sm_t, factor)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def serpentine(h, w):
+    """Lanes of 2 rows, 23 rows apart, joined at alternating ends: a winding
+    corridor that needs more passes than max(H, W) // 10."""
+    det = np.zeros((h, w), np.float32)
+    for i, r in enumerate(range(0, h, 23)):
+        det[r:r + 2, :] = 1.0
+        c = w - 2 if i % 2 == 0 else 0
+        det[r:r + 25, c:c + 2] = 1.0
+    return det
+
+
+def _band_cases(b, h, w, rng):
+    """Masks and seeds that stress the cluster bands (clusters of 8 CTAs up
+    to B = 15 on an H100, then 4, 2, and one CTA an image from B = 67):
+    blobs across every possible band boundary, seeds on row 0, the last row
+    and boundaries."""
+    det = (rng.random((b, h, w)) > 0.55).astype(np.float32)
+    for r in range(10, h, 10):  # every boundary of bands of >= 10 rows
+        det[:, r - 3:r + 3, (r * 7) % w] = 1.0
+    rows = [0, h - 1] + [q * h // c for c in (2, 3, 4, 8) for q in range(c)]
+    seed = np.stack([np.array(rows)[np.arange(b) % len(rows)],
+                     rng.integers(0, w, b)], 1).astype(np.int32)
+    return det, seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", [(1, 240, 320), (2, 240, 320),
+                                   (5, 240, 320), (40, 240, 320),
+                                   (80, 240, 320),
+                                   (1, 37, 64), (3, 37, 64), (1, 120, 160),
+                                   (7, 120, 160), (1, 9, 20), (2, 240, 322)])
+def test_flood_fill_kernel_bands_match_twin(cuda, b, h, w):
+    det, seed = _band_cases(b, h, w, np.random.default_rng(b + h + w))
+    det_t = torch.from_numpy(det).to(cuda)
+    seed_t = torch.from_numpy(seed).to(cuda)
+    for passes in (1, 2, max(h, w) // 10, 100):
+        got = floodfill.flood_fill_cuda(det_t, seed_t, passes)
+        want = segmentation.flood_fill_torch(det_t, seed_t, passes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), passes
+
+
+@pytest.mark.gpu
+def test_flood_fill_takes_clusters_at_small_batch_only(cuda):
+    size, held = floodfill.cluster_plan(1, 240, 320, cuda)
+    assert 1 < size <= 8 and held >= 1
+    assert floodfill.cluster_plan(128, 240, 320, cuda) == (1, 0)
+    assert floodfill.cluster_plan(1, 19, 320, cuda) == (1, 0)  # bands < 10
+    assert floodfill.cluster_plan(1, 37, 64, cuda)[0] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_flood_fill_kernel_stops_at_num_passes(cuda, b):
+    det = torch.from_numpy(np.repeat(serpentine(240, 320)[None], b, 0))
+    det = det.to(cuda)
+    seed = torch.zeros((b, 2), dtype=torch.int32, device=cuda)
+    capped = floodfill.flood_fill_cuda(det, seed, 32)
+    assert torch.equal(capped, segmentation.flood_fill_torch(det, seed, 32))
+    assert not torch.equal(capped, floodfill.flood_fill_cuda(det, seed, 33))
+    full = floodfill.flood_fill_cuda(det, seed, 1000)
+    torch.cuda.synchronize()
+    assert torch.equal(full, segmentation.flood_fill_torch(det, seed, 1000))
+    assert torch.equal(full, det)  # the corridor is one blob
+
+
+def _decode_specials(shape, rng):
+    sm = rng.standard_normal(shape).astype(np.float32)
+    b, h, w, _ = shape
+    sm[0, :, :, 0] = 0.0  # all ties
+    sm[0, 1, 1, 1] = sm[0, h - 2, w - 3, 1] = sm[0].max() + 1.0  # far tie
+    sm[0, :, :, 2] = -1.0  # -0.0 then +0.0: a tie, the first wins
+    sm[0, 2, 3, 2] = -0.0
+    sm[0, h - 1, 1, 2] = 0.0
+    sm[-1, h // 2, 2, 3] = np.nan  # the first NaN wins
+    sm[-1, h - 1, w - 1, 3] = np.nan
+    sm[-1, :, :, 4] = -np.inf
+    sm[-1, h - 1, w - 1, 5] = 10.0  # edge peaks
+    sm[-1, 0, w - 1, 6] = 10.0
+    return sm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,factor", [((1, 32, 32, 21), 8),
+                                          ((128, 32, 32, 21), 8),
+                                          ((3, 10, 12, 7), 3),
+                                          ((5, 16, 16, 7), 4),
+                                          ((2, 9, 40, 33), 2)])
+def test_decode_kernel_specials_match_twin(cuda, shape, factor):
+    sm_t = torch.from_numpy(
+        _decode_specials(shape, np.random.default_rng(shape[0]))).to(cuda)
+    got = decode.decode_upsampled_cuda(sm_t, factor)
+    want = keypoints.decode_upsampled_torch(sm_t, factor)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
