@@ -198,11 +198,18 @@ LIBRARY = {
                         "asymmetric one, and the argmax is a second call",
 }
 # the bounds: NVIDIA's data sheet of the H100 SXM, float32 outside the tensor
-# cores and HBM3; the operation counts are the Pallas kernels' CostEstimates
-# (decode.py:105, floodfill.py:125-126)
+# cores and HBM3. The decode's count is its Pallas kernel's CostEstimate
+# (decode.py:105). The flood fill works on binary maps as 32-pixel words:
+# per word and pass 43.125 integer operations (the 21-row OR tree 89 per 8
+# rows, the two +-10 column reach trees 14 each, combine and mask 2, change
+# test 2; csrc/floodfill.cu), plus a compare a pixel to pack and a select to
+# unpack, at the INT32 rate: 64 operations per SM and clock against 128 f32
+# lanes, whose FMAs count twice in the f32 rate, so a quarter of it
 PEAK_F32_OPS = 67e12
+PEAK_INT32_OPS = PEAK_F32_OPS / 4
 PEAK_BYTES = 3.35e12
-FLOOD_OPS_PER_PX_PASS = 16
+FLOOD_OPS_PER_WORD_PASS = 89 / 8 + 14 + 14 + 2 + 2
+FLOOD_OPS_PER_PX = 2  # pack and unpack
 DECODE_OPS_PER_VALUE = 6  # per source value and (a, b) offset
 
 
@@ -377,22 +384,27 @@ def flood_passes(det, seed, num_passes):
     return passes.tolist()
 
 
-def bound(ops, nbytes):
+def bound(ops, peak_ops, nbytes):
     """The least time the card could take: the larger of the operations over
-    the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    their peak rate and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
 
 
 def flood_bound(det, seed, num_passes):
-    """Bound of one flood fill: each image's passes at 16 operations a pixel;
-    det read once, the result written once, the seeds read once."""
+    """Bound of one flood fill: each image's passes at 43.125 integer
+    operations a 32-pixel word, packing and unpacking at 2 a pixel; det read
+    once, the result written once, the seeds read once."""
     b, h, w = det.shape
     passes = flood_passes(det, seed, num_passes)
-    out = bound(FLOOD_OPS_PER_PX_PASS * h * w * sum(passes),
+    words = h * ((w + 31) // 32)
+    out = bound(FLOOD_OPS_PER_WORD_PASS * words * sum(passes)
+                + FLOOD_OPS_PER_PX * b * h * w, PEAK_INT32_OPS,
                 2 * 4 * b * h * w + 8 * b)
+    out["ops_counted"] = (f"int32: {FLOOD_OPS_PER_WORD_PASS} a 32-px word "
+                          f"and pass, {FLOOD_OPS_PER_PX} a px")
     out["passes"] = passes if b <= SLICE_BATCH else {
         "sum": sum(passes), "min": min(passes), "max": max(passes)}
     return out
@@ -402,8 +414,11 @@ def decode_bound(sm, factor):
     """Bound of one decode: 6 operations a source value and (a, b) offset;
     the scoremap read once, the (row, col) pairs written once."""
     b, h, w, k = sm.shape
-    return bound(DECODE_OPS_PER_VALUE * factor * factor * b * h * w * k,
-                 4 * b * h * w * k + 4 * b * k * 2)
+    out = bound(DECODE_OPS_PER_VALUE * factor * factor * b * h * w * k,
+                PEAK_F32_OPS, 4 * b * h * w * k + 4 * b * k * 2)
+    out["ops_counted"] = (f"f32: {DECODE_OPS_PER_VALUE} a source value and "
+                          "upsampled offset")
+    return out
 
 
 def slice_inputs(params, image, hand_side):

@@ -46,8 +46,11 @@
 //    nvcc never contracts.
 // Other factors keep the table path of the first design: each upsampled
 // row/col gets its (lo, hi, weight) from the same float64 grid as the numpy
-// tables of ops/image.py; there 1/f is inexact in float64, so the overlay's
-// weights agree with the grid only by search, not by construction.
+// tables of ops/image.py. There 1/f is inexact in float64 and the grid can
+// leave the overlay form: at f = 49 destination row or column 49 takes
+// lo = 0, hi = 1 at weight 1.0 where the overlay takes 1 and 1, so an inf
+// in source row or column 0 makes the twin's value 0 * inf = NaN and the
+// overlay's finite (tests/test_torch_kernel_designs.py).
 
 #include <cuda_runtime.h>
 

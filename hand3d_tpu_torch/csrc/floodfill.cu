@@ -9,11 +9,15 @@
 // seed on a background pixel still grows into foreground within its window;
 // a seed outside the image grows nothing.
 //
-// Bound on an H100 (67 TFLOP/s f32, 3.35 TB/s): the TPU kernel's count is 16
-// operations per pixel and pass (floodfill.py:125-126) against one read of
-// det and one write of the result, 614 KB per 240x320 image. At the cap of 32
-// passes it is bound by operations, 0.59 us an image; an input that needs
-// fewer passes moves the bound toward the 0.18 us of its bytes.
+// Bound on an H100: on binary maps a pass is integer work on 32-pixel words,
+// 43.125 word operations a word (below: the vertical tree 89 per 8 rows, the
+// two reach trees 14 each, combine and mask 2, change test 2), plus one
+// compare a pixel to pack and one select to unpack. The card issues 64 INT32
+// operations per SM and clock against 128 f32 lanes, a quarter of the 67
+// TFLOP/s f32 rate (which counts an FMA as two): 16.75 Tops/s. Against one
+// read of det and one write of the result at 3.35 TB/s (614 KB, 0.18 us per
+// 240x320 image), 32 passes cost 0.20 us an image: the two bounds are about
+// equal, and an input that needs fewer passes is bound by its bytes.
 //
 // The maps stay on chip for all passes as bit masks, 32 pixels a word
 // (240x320: 10 words a row, 9.6 KB a map). All arithmetic is integer, and
@@ -33,18 +37,24 @@
 //    with cudaLaunchKernelEx. Each CTA owns a band of at least 10
 //    rows, so a band's 10-row halos lie in its two neighbours' bands. At
 //    large batch a cluster is one CTA, one image;
-//  * each CTA keeps obj with 10-row margins. As it writes the first and last
-//    10 rows of its band, it also stores them into its neighbours' margins
-//    through distributed shared memory, so the next pass reads only its own
-//    shared memory. obj is double-buffered: a pass reads one buffer and
-//    writes the other, so one cluster barrier a pass orders it (one block
-//    barrier in a cluster of one). A CTA that changed a word sets the pass's
-//    flag in every CTA of the cluster (three flags in rotation, each cleared
-//    by its owner two passes after use), and all CTAs leave on one pass;
+//  * in a cluster, each CTA keeps obj with 10-row margins. As it writes the
+//    first and last 10 rows of its band, it also stores them into its
+//    neighbours' margins through distributed shared memory, so the next pass
+//    reads only its own shared memory. obj is double-buffered: a pass reads
+//    one buffer and writes the other, so one cluster barrier a pass orders
+//    it. A CTA that changed a word sets the pass's flag in every CTA of the
+//    cluster (three flags in rotation, each cleared by its owner two passes
+//    after use), and all CTAs leave on one pass;
+//  * a cluster of one keeps the first design's 12 bytes a row-word (det, the
+//    vertical OR, one obj buffer, no margins), so every map size that fitted
+//    then fits now; it needs one buffer because a pass writes obj only after
+//    a block barrier, from the vertical OR. Its pass ends in one
+//    __syncthreads_or;
 //  * a pass ORs vertically first (21 rows), then horizontally, then masks
 //    with det. The vertical reach is a log-step tree in registers: a thread
-//    loads the 28 words of one column that 8 consecutive rows need, ORs pairs
-//    at distance 1, 2 and 4 (y4[i] covers rows i..i+7), then
+//    loads the 28 words of one column that 8 consecutive rows need (zero
+//    beyond the rows it holds), ORs pairs at distance 1, 2 and 4 (y4[i]
+//    covers rows i..i+7), then
 //    out[i] = y4[i] | y4[i + 8] | y4[i + 13]. The horizontal reach of +-10
 //    is a log-step tree (1, 2, 4, then 3 gives 0..10) on each side, with the
 //    neighbouring word carried in by __funnelshift_r / __funnelshift_l and
@@ -74,18 +84,26 @@ constexpr int kMaxCluster = 8;  // portable cluster size
 constexpr int kMaxSmem = 232448;  // per block on Hopper
 constexpr int kDefaultSmem = 48 * 1024;
 
-// obj is held with margins: row g of the image is row g - r0 + kHalf of a
-// CTA's buffer, whose rows [0, kHalf) and [nr + kHalf, nr + 2 kHalf) take
-// the neighbours' halos (zero beyond the image), and kRun more rows let the
-// last run of the vertical tree load past them.
-__host__ __device__ inline int ext_rows(int band_cap) {
-  return band_cap + 2 * kHalf + kRun;
+// In a cluster, obj is held with margins: row g of the image is row
+// g - r0 + kHalf of a CTA's buffer, whose rows [0, kHalf) and
+// [nr + kHalf, nr + 2 kHalf) take the neighbours' halos (zero beyond the
+// image), and kRun more rows let the last run of the vertical tree load past
+// them unchecked. A cluster of one holds no margins.
+__host__ __device__ inline int margin_rows(int C) {
+  return C > 1 ? kHalf : 0;
+}
+
+__host__ __device__ inline int held_rows(int band_cap, int C) {
+  return C > 1 ? band_cap + 2 * kHalf + kRun : band_cap;
 }
 
 // Shared memory of one CTA in words: det and the vertical OR for `band_cap`
-// rows, two obj buffers with margins, three flags.
-__host__ __device__ inline long long smem_words(int band_cap, int words) {
-  return (2ll * band_cap + 2ll * ext_rows(band_cap)) * words + 3;
+// rows, then in a cluster two obj buffers with margins and three flags, in a
+// cluster of one a single obj buffer.
+__host__ __device__ inline long long smem_words(int band_cap, int words,
+                                                int C) {
+  if (C == 1) return 3ll * band_cap * words;
+  return (2ll * band_cap + 2ll * held_rows(band_cap, C)) * words + 3;
 }
 
 // Row band [r0, r1) of rank `rank` in a cluster of `C` over H rows: bands
@@ -215,12 +233,16 @@ flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
   const int nr = r1 - r0;
 
   extern __shared__ uint32_t smem[];
+  const int m = margin_rows(C);
+  const int span = nr + 2 * m;  // buffer rows that hold image rows from r0 - m
+  const int held = held_rows(band_cap, C);  // buffer rows in all
   const int n = band_cap * words;
-  const int n_ext = ext_rows(band_cap) * words;
+  const int n_ext = held * words;
   uint32_t* det_bits = smem;
   uint32_t* vert = smem + n;
-  uint32_t* const obj[2] = {smem + 2 * n, smem + 2 * n + n_ext};
-  uint32_t* flags = smem + 2 * n + 2 * n_ext;  // [3]
+  uint32_t* const obj[2] = {smem + 2 * n,
+                            C > 1 ? smem + 2 * n + n_ext : smem + 2 * n};
+  uint32_t* flags = smem + 2 * n + 2 * n_ext;  // [3], in a cluster only
 
   const float* det_b = det + static_cast<size_t>(b) * H * W;
   float* out_b = out + static_cast<size_t>(b) * H * W;
@@ -228,15 +250,15 @@ flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
   const int T = blockDim.x;
 
   pack_rows(det_b, det_bits, r0, r1, W, words, vec);
-  for (int i = t; i < 2 * n_ext; i += T) obj[0][i] = 0u;
-  if (t < 3) flags[t] = 0u;
+  for (int i = t; i < (C > 1 ? 2 * n_ext : n_ext); i += T) obj[0][i] = 0u;
+  if (C > 1 && t < 3) flags[t] = 0u;
   __syncthreads();
   const int sr = seed[2 * b];
   const int sc = seed[2 * b + 1];
   // the seed, in this CTA's rows or margins
   if (t == 0 && sr >= 0 && sr < H && sc >= 0 && sc < W &&
-      sr >= r0 - kHalf && sr < r1 + kHalf)
-    obj[0][(sr - r0 + kHalf) * words + (sc >> 5)] = 1u << (sc & 31);
+      sr >= r0 - m && sr < r1 + m)
+    obj[0][(sr - r0 + m) * words + (sc >> 5)] = 1u << (sc & 31);
 
   // the neighbours' buffers: this band's first and last 10 rows are the
   // margins of the band above and below; the band above holds up_nr rows
@@ -272,11 +294,27 @@ flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
     // vertical: vert[r] = OR of obj rows r - 10 .. r + 10 (margins included)
     for (int run = my_row; run < runs; run += row_lanes) {
       const int ra = run * kRun;
+      const int row0 = ra - kHalf + m;  // buffer row of the first tap
+      // taps past `span` feed only rows past the band, which are not
+      // stored, so a run inside the buffer loads unchecked: every run in a
+      // cluster. A warp checks its loads if any of its runs needs it, so
+      // that its lanes do not diverge.
+      const bool inside = __all_sync(__activemask(),
+                                     row0 >= 0 && row0 + kTaps <= held);
       for (int c = my_c; c < words; c += cols) {
-        const uint32_t* col = own + ra * words + c;  // row ra - 10 + kHalf
+        const uint32_t* col = own + c;
         uint32_t x[kTaps];
+        if (inside) {
 #pragma unroll
-        for (int i = 0; i < kTaps; ++i) x[i] = col[i * words];
+          for (int i = 0; i < kTaps; ++i) x[i] = col[(row0 + i) * words];
+        } else {
+#pragma unroll
+          for (int i = 0; i < kTaps; ++i) {
+            const int row = row0 + i;
+            x[i] = static_cast<unsigned>(row) < static_cast<unsigned>(span)
+                ? col[row * words] : 0u;
+          }
+        }
 #pragma unroll
         for (int i = 0; i + 1 < kTaps; ++i) x[i] |= x[i + 1];  // 2 rows
 #pragma unroll
@@ -303,8 +341,8 @@ flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
     for (int r = h_row; r < h_nr; r += seg_rows) {
       const uint32_t* vrow = vert + r * words;
       const uint32_t* drow = det_bits + r * words;
-      const uint32_t* orow = own + (r + kHalf) * words;
-      uint32_t* nrow = next + (r + kHalf) * words;
+      const uint32_t* orow = own + (r + m) * words;
+      uint32_t* nrow = next + (r + m) * words;
       uint32_t* up_row = r < kHalf && rank > 0
           ? next_up + (up_nr + kHalf + r) * words : nullptr;
       uint32_t* down_row = r >= nr - kHalf && rank + 1 < C
@@ -338,8 +376,8 @@ flood_fill_kernel(const float* __restrict__ det, const int* __restrict__ seed,
     cur ^= 1;
     if (!any) break;
   }
-  unpack_rows((cur ? obj[1] : obj[0]) + kHalf * words, out_b, r0, r1, W,
-              words, vec);
+  unpack_rows((cur ? obj[1] : obj[0]) + m * words, out_b, r0, r1, W, words,
+              vec);
 }
 
 // A launch of B clusters of C CTAs with `smem` bytes each.
@@ -392,14 +430,15 @@ cudaError_t clusters_held(int C, int smem, int dev, int* held) {
 
 // Cluster size C: the largest, up to 8, whose B clusters the card holds at
 // once (`held` of them), with bands of at least 10 rows so that a halo lies
-// in the neighbouring band; else 1, one CTA an image.
+// in the neighbouring band; else 1, one CTA an image, which the caller has
+// checked fits.
 cudaError_t plan(int B, int H, int words, int* C, int* held) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   *C = 1;
   *held = 0;
   for (int c = min(kMaxCluster, H / kHalf); e == cudaSuccess && c > 1; --c) {
-    const long long bytes = 4 * smem_words((H + c - 1) / c, words);
+    const long long bytes = 4 * smem_words((H + c - 1) / c, words, c);
     if (bytes > kMaxSmem) break;
     e = clusters_held(c, static_cast<int>(bytes), dev, held);
     if (e == cudaSuccess && *held >= B) {
@@ -418,24 +457,26 @@ extern "C" {
 // The cluster size h3d_flood_fill takes for [B, H, W], and how many such
 // clusters the card holds at once (0 for a cluster of one).
 int h3d_flood_fill_plan(int B, int H, int W, int* C, int* held) {
-  if (B <= 0 || H <= 0 || W <= 0)
+  const int words = (W + 31) / 32;
+  if (B <= 0 || H <= 0 || W <= 0 || 4 * smem_words(H, words, 1) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(plan(B, H, (W + 31) / 32, C, held));
+  return static_cast<int>(plan(B, H, words, C, held));
 }
 
 // det [B, H, W] f32, seed [B, 2] int32 (row, col), out [B, H, W] f32, all
-// contiguous device memory. Launches on `stream`; returns a cudaError_t.
+// contiguous device memory. The maps must fit one CTA (12 bytes a row and
+// 32-pixel word). Launches on `stream`; returns a cudaError_t.
 int h3d_flood_fill(const float* det, const int* seed, float* out, int B, int H,
                    int W, int num_passes, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || num_passes < 0 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int words = (W + 31) / 32;
+  if (B <= 0 || H <= 0 || W <= 0 || num_passes < 0 || B > 65535 ||
+      4 * smem_words(H, words, 1) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   int C = 1, held = 0;
   cudaError_t e = plan(B, H, words, &C, &held);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int band_cap = (H + C - 1) / C;
-  const long long smem = 4 * smem_words(band_cap, words);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = 4 * smem_words(band_cap, words, C);
   e = allow_smem(static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   // 16-byte loads and stores need rows of whole float4s on aligned tensors

@@ -26,7 +26,8 @@ def _lib():
 
 def overlay_path(factor):
     """Power-of-two factors take the kernel's overlay path, the others its
-    table path (csrc/decode.cu)."""
+    table path (csrc/decode.cu): for them the twin's float64 grid can leave
+    the overlay form (at f = 49 it does)."""
     return factor & (factor - 1) == 0
 
 

@@ -28,11 +28,10 @@ def _lib():
 
 
 def smem_bytes(h, w):
-    """Shared memory of the kernel's one-CTA-per-image launch, as bit masks
-    of 32 pixels a word: det and the vertical OR for h rows, two obj buffers
-    of h + 28 rows (halo margins), three flags. A cluster's CTAs each hold
-    a band and need less."""
-    return 4 * ((2 * h + 2 * (h + 28)) * ((w + 31) // 32) + 3)
+    """Shared memory of the kernel's one-CTA-per-image launch: det, the
+    vertical OR and obj as bit masks, 32 pixels a word. The kernel takes a
+    cluster only where its CTAs' bands fit, so this is the size limit."""
+    return 3 * h * ((w + 31) // 32) * 4
 
 
 def cluster_plan(b, h, w, device):

@@ -43,12 +43,13 @@ def _order_key(v, p):
 def overlay_decode(sm, factor, nb):
     """decode.cu's overlay path on [B, h, w, K] float32: per band, each lane
     (column j) of each warp (channel) walks its (i, a, c) in the kernel's
-    order with its strict compare; keys meet in a max over lanes and bands."""
+    order with its strict compare; keys meet in a max over lanes and bands.
+    Weights are f32(a) / f32(f), as the Pallas kernel takes them; with a
+    power-of-two f that is the kernel's exact a * (1 / f)."""
     b, h, w, k = sm.shape
     f = factor
-    assert f & (f - 1) == 0
     oh, ow = h * f, w * f
-    inv_f = torch.tensor(1.0 / f, dtype=torch.float32)
+    f32 = torch.tensor(float(f), dtype=torch.float32)
     one = torch.tensor(1.0, dtype=torch.float32)
     j = torch.arange(w)
     jh = torch.clamp(j + 1, max=w - 1)
@@ -60,13 +61,13 @@ def overlay_decode(sm, factor, nb):
         for i in rows:
             top, bot = sm[:, i], sm[:, min(i + 1, h - 1)]  # [B, w, K]
             for a in range(max(r0 - i * f, 0), min(r1 - i * f, f)):
-                wr = torch.tensor(float(a), dtype=torch.float32) * inv_f
+                wr = torch.tensor(float(a), dtype=torch.float32) / f32
                 cr = one - wr
                 rj = top[:, j] * cr + bot[:, j] * wr
                 rjh = top[:, jh] * cr + bot[:, jh] * wr
                 base = (i * f + a) * ow + f * j
                 for c in range(f):
-                    wc = torch.tensor(float(c), dtype=torch.float32) * inv_f
+                    wc = torch.tensor(float(c), dtype=torch.float32) / f32
                     v = rj * (one - wc) + rjh * wc
                     take = ~(v <= bv) & (bv == bv)
                     bv = torch.where(take, v, bv)
@@ -144,12 +145,31 @@ def test_grid_rows_match_legacy_coeffs():
             assert _grid_row(r, f, h) == (lo[r], wt[r])
 
 
+def _table_path_rows(f):
+    """The most rows (or columns) of an upsampled map at factor f within the
+    table path's size limit (4 h w + 12 (h + w) f bytes, decode.py), at
+    w = 1 (or h = 1)."""
+    return (232448 - 12 * f) // (4 + 12 * f) * f
+
+
+def _grid_departs(f):
+    """Whether the float64 grid leaves the overlay form (lo = r // f, weight
+    f32(r % f) / f32(f)) on some row within the table path's sizes."""
+    rows = _table_path_rows(f)
+    lo, _, wt = _legacy_lin_coeffs(rows // f, rows)
+    r = np.arange(rows)
+    return bool((lo != r // f).any()
+                or (wt != (r % f).astype(np.float32) / np.float32(f)).any())
+
+
 def test_overlay_weights_exact_only_for_powers_of_two():
     """With f = 2^k the grid is exact: lo = r // f and weight (r % f) / f at
-    every row. For other factors 1/f is inexact in float64, and the grid's
-    weight can leave f32(a / f): at f = 7 it does at row 58,720,257. Within
-    the table path's sizes no factor tried departs (f = 3 included), but
-    only by search, so decode.cu keeps the table path for them."""
+    every row. For other factors 1/f is inexact in float64: searching every
+    factor up to 256 at the table path's largest size, 49 is the first whose
+    grid leaves the overlay form (f = 3, 5, 6 and 7 do not, though at f = 7
+    the weight departs from row 58,720,257), and no power of two does. So
+    decode.cu keeps its table path for the factors that are not powers of
+    two."""
     for f in (2, 4, 8, 16):
         for r in list(range(4 * f)) + [2**24 + 3, 2**28 - 1]:
             lo, wt = _grid_row(r, f, h=2**28 // f + 1)
@@ -158,13 +178,26 @@ def test_overlay_weights_exact_only_for_powers_of_two():
     lo, wt = _grid_row(r, f, h=r // f + 1)
     assert lo == r // f
     assert wt != np.float32(r % f) / np.float32(f)
-    for f in (3, 5, 6, 7):
-        h = 232448 // (4 + 12 * f)  # a table-path size limit for w = 1
-        lo, _, wt = _legacy_lin_coeffs(h, h * f)
-        r = np.arange(h * f)
-        np.testing.assert_array_equal(lo, r // f)
-        np.testing.assert_array_equal(
-            wt, (r % f).astype(np.float32) / np.float32(f))
+    departs = [f for f in range(2, 257) if _grid_departs(f)]
+    assert departs[0] == 49
+    assert not set(departs) & {2, 4, 8, 16, 32, 64, 128, 256}
+
+
+def test_overlay_departs_from_twin_at_factor_49():
+    """At f = 49 the grid takes destination column 49 from source columns 0
+    and 1 at weight 1.0, the overlay form from column 1 alone. With inf at
+    column 0, the twin's 0 * inf there is NaN, the argmax; the overlay's
+    value is finite, and its argmax is the inf at column 0. The kernel's
+    table path follows the grid."""
+    f = 49
+    lo, hi, wt = _legacy_lin_coeffs(2, 2 * f)
+    assert (lo[f], hi[f], wt[f]) == (0, 1, np.float32(1.0))
+    sm = np.zeros((1, 2, 2, 1), np.float32)
+    sm[0, 0, 0, 0] = np.inf
+    want = keypoints.decode_upsampled_torch(torch.from_numpy(sm), f)
+    assert want.tolist() == [[[0.0, 49.0]]]
+    got = overlay_decode(torch.from_numpy(sm), f, 1)
+    assert got.tolist() == [[[0.0, 0.0]]]
 
 
 # --- flood fill: bit words, reach trees, bands with halos -------------------
@@ -218,7 +251,8 @@ def banded_flood_fill(det, seed, passes, clusters):
     """floodfill.cu on one [H, W] image: CTA q of `clusters` owns rows
     [q H / C, (q+1) H / C) and keeps obj[cur] with 10-row margins that hold
     its neighbours' nearest 10 rows (the kernel's CTAs store those rows
-    there as they write them; zero beyond the image); a pass ORs 21 rows by
+    there as they write them; zero beyond the image; a cluster of one holds
+    no margins and reads zeros past its rows, the same); a pass ORs 21 rows by
     the tree over runs of 8 rows, then +-10 columns by the funnel-shift
     trees, masks with det and writes obj[cur ^ 1] of its own rows; the
     passes stop when no band changed."""

@@ -181,6 +181,35 @@ def test_flood_fill_takes_clusters_at_small_batch_only(cuda):
     assert floodfill.cluster_plan(128, 240, 320, cuda) == (1, 0)
     assert floodfill.cluster_plan(1, 19, 320, cuda) == (1, 0)  # bands < 10
     assert floodfill.cluster_plan(1, 37, 64, cuda)[0] == 3
+    assert floodfill.cluster_plan(1, 540, 960, cuda)[0] > 1
+    assert floodfill.cluster_plan(128, 540, 960, cuda) == (1, 0)
+
+
+@pytest.mark.parametrize("h,w,fits", [(240, 320, True), (540, 960, True),
+                                      (600, 800, True), (645, 960, True),
+                                      (646, 960, False), (19370, 32, True),
+                                      (19371, 32, False)])
+def test_flood_fill_size_limit_is_one_cta_of_bit_maps(h, w, fits):
+    """Maps fit while one CTA holds det, the vertical OR and obj as bit
+    masks: 12 bytes a row and 32-pixel word, as since the first design."""
+    assert floodfill.smem_bytes(h, w) == 12 * h * ((w + 31) // 32)
+    assert (floodfill.smem_bytes(h, w) <= build.MAX_SMEM_BYTES) == fits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("h,w", [(540, 960), (600, 800)])
+def test_flood_fill_kernel_large_frames_match_twin(cuda, b, h, w):
+    """Frames at seg_scale 1 whose maps take most of a CTA's shared memory:
+    one CTA an image at batch 128, a cluster at batch 1."""
+    det, seed = _band_cases(b, h, w, np.random.default_rng(h + b))
+    det_t = torch.from_numpy(det).to(cuda)
+    seed_t = torch.from_numpy(seed).to(cuda)
+    for passes in (3, max(h, w) // 10):
+        got = floodfill.flood_fill_cuda(det_t, seed_t, passes)
+        want = segmentation.flood_fill_torch(det_t, seed_t, passes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), passes
 
 
 @pytest.mark.gpu
@@ -227,3 +256,17 @@ def test_decode_kernel_specials_match_twin(cuda, shape, factor):
     want = keypoints.decode_upsampled_torch(sm_t, factor)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_follows_the_grid_at_factor_49(cuda):
+    """At f = 49 the twin's float64 grid takes column 49 from columns 0 and
+    1 at weight 1.0, so inf at column 0 makes it NaN: the argmax. The
+    overlay form would answer (0, 0); the kernel's table path follows the
+    grid."""
+    sm = torch.zeros((1, 2, 2, 1), device=cuda)
+    sm[0, 0, 0, 0] = float("inf")
+    got = decode.decode_upsampled_cuda(sm, 49)
+    torch.cuda.synchronize()
+    assert got.tolist() == [[[0.0, 49.0]]]
+    assert torch.equal(got, keypoints.decode_upsampled_torch(sm, 49))
