@@ -162,7 +162,9 @@ def _band_cases(b, h, w, rng):
                                    (5, 240, 320), (40, 240, 320),
                                    (80, 240, 320),
                                    (1, 37, 64), (3, 37, 64), (1, 120, 160),
-                                   (7, 120, 160), (1, 9, 20), (2, 240, 322)])
+                                   (7, 120, 160), (1, 9, 20), (2, 240, 322),
+                                   (1, 540, 960), (128, 540, 960),
+                                   (1, 600, 800), (128, 600, 800)])
 def test_flood_fill_kernel_bands_match_twin(cuda, b, h, w):
     det, seed = _band_cases(b, h, w, np.random.default_rng(b + h + w))
     det_t = torch.from_numpy(det).to(cuda)
@@ -194,22 +196,6 @@ def test_flood_fill_size_limit_is_one_cta_of_bit_maps(h, w, fits):
     masks: 12 bytes a row and 32-pixel word, as since the first design."""
     assert floodfill.smem_bytes(h, w) == 12 * h * ((w + 31) // 32)
     assert (floodfill.smem_bytes(h, w) <= build.MAX_SMEM_BYTES) == fits
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 128])
-@pytest.mark.parametrize("h,w", [(540, 960), (600, 800)])
-def test_flood_fill_kernel_large_frames_match_twin(cuda, b, h, w):
-    """Frames at seg_scale 1 whose maps take most of a CTA's shared memory:
-    one CTA an image at batch 128, a cluster at batch 1."""
-    det, seed = _band_cases(b, h, w, np.random.default_rng(h + b))
-    det_t = torch.from_numpy(det).to(cuda)
-    seed_t = torch.from_numpy(seed).to(cuda)
-    for passes in (3, max(h, w) // 10):
-        got = floodfill.flood_fill_cuda(det_t, seed_t, passes)
-        want = segmentation.flood_fill_torch(det_t, seed_t, passes)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), passes
 
 
 @pytest.mark.gpu
