@@ -24,22 +24,46 @@ line is printed:
    comparison of hand3d_tpu_torch.parity;
 5. times: CUDA-event times of the served slice and of each kernel beside its
    twin and its bound at batches 1, 32 and 128, and of the flood fill on two
-   fixed masks (a hand-sized blob, a serpentine that runs every pass);
-6. eval: synthetic RHD (320x320) and STB (480x640) files in the reference's
+   fixed masks (a hand-sized blob, a serpentine that runs every pass); at
+   batch 1 the host time of each registered op (torch.ops.hand3d.*) beside
+   its binding called directly, and batch-1 predicts through the ops and
+   through the bindings, alternating: what the op dispatch costs;
+6. serve: AutoBucketEstimator with one 240x320 bucket on 480x640 and 300x500
+   uint8 frames, resized on the card (held to the CPU's resize within
+   RESIZE_ATOL), each answer equal to the bucket's cascade mapped back to
+   the caller's frame, that cascade held flip-aware to the port's CPU run;
+   DynamicBatcher over a batch-8 estimator, 32 one-image requests from 16
+   threads in fewer device batches, each answer equal to its row of a direct
+   predict of its batch; cli.serve's HTTP server in front of the batcher
+   (.npy POSTs from 4 threads, a 500, /healthz, /metrics) and the one-image
+   round trip through it and through a batch-1 server (median of 20; with
+   predict on the server's device thread and on each request's own handler
+   thread);
+7. export: export_estimator at batch 8 on the card, loaded in a child
+   process that imports only hand3d_tpu_torch.export: both kernels launch
+   there, no model module is imported, the answers equal the live
+   estimator's bit for bit;
+8. bf16: HandPoseEstimator(compute_dtype="bfloat16") at batches 1, 32 and
+   128 beside f32's frames/s, its cascade held flip-aware to the port's bf16
+   CPU run (BF16_* bounds), each of its 59 convs to the CPU's f32 conv of the
+   same bf16-rounded operands (TF32 multiplies them exactly), TF32 off
+   afterwards;
+9. eval: synthetic RHD (320x320) and STB (480x640) files in the reference's
    record layouts go through the five eval harnesses at their CLI batch
    sizes (eval2d_full_image with both scale_to_size settings, eval3d_lifting
    for all five variants). Each harness is called once to warm up, then
    once more, timed by CUDA events, with its kernel launches counted and its
    per-sample dists recorded; metrics must be finite, the kernels must have
-   launched where the harness runs them, and TF32 must stay off. The first
-   batch of those dists is held to the port's CPU run of the same records,
-   flip-aware for the cascade harnesses. One harness call per harness (one
-   lifting variant) is also timed over a longer file: 10 or 20 batches,
+   launched where the harness runs them, and TF32 must stay off. The dists
+   of the first batch's first 4 records are held to the port's CPU run of
+   the same records, flip-aware for the cascade harnesses. One harness call
+   per harness (one lifting variant) is also timed over a longer file: 10
+   or 20 batches,
    and its steady-state pace read from the drains of batches inside the
    streaming loop (each right after a launch). The cascade with seg_scale=0.5 and with the soft-argmax decoder is
    held to the CPU run, and the flood-fill kernel to its twin, bit for bit,
    on the 120x160 maps that seg_scale=0.5 makes;
-7. train: the four trainers' CLIs (train_posenet, train_handsegnet,
+10. train: the four trainers' CLIs (train_posenet, train_handsegnet,
    train_lifting proposed, train_joint proposed) each run 20 steps on a
    synthetic 64-record RHD file at full width (batch 8, 256x256 crops, the
    reference LR defaults, seeded random weights) with a metrics log and a
@@ -60,18 +84,22 @@ line is printed:
    torch.profiler window of 3 PoseNet steps gives the conv and idle shares.
    TF32 must stay off.
 
-Standard output ends with one JSON line per timed batch, per eval harness
-and per training stage, the kernels line, nvidia-smi's line, and
-{"ok": true, "device": {...}}.
+Standard output ends with one JSON line per timed batch, per serving check,
+per eval harness and per training stage, the seconds of each phase, the
+kernels line, nvidia-smi's line, and {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import http.client
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -92,7 +120,11 @@ from hand3d_tpu_torch.models.poseprior import VARIANTS
 from hand3d_tpu_torch.ops import keypoints, nn, segmentation
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
-from hand3d_tpu_torch.serving import HandPoseEstimator, normalize_images
+from hand3d_tpu_torch.cli import serve
+from hand3d_tpu_torch.export import export_estimator
+from hand3d_tpu_torch.serving import (AutoBucketEstimator, DynamicBatcher,
+                                      HandPoseEstimator, _map_back,
+                                      _resize_to, normalize_images)
 from hand3d_tpu_torch.train import loop, trainer
 
 CPU = torch.device("cpu")
@@ -117,6 +149,9 @@ EVAL_BATCHES = {"eval2d_gt_cropped": 32, "eval2d_full_image": 16,
                 "eval3d_lifting": 32, "eval3d_from_posenet": 32,
                 "eval_full_pipeline": 16}  # the harnesses' defaults
 EVAL_DIST_ATOL = 1e-4  # px for 2D dists, m for 3D dists
+# the first batch's first 4 images are held to the CPU run: the CPU side of a
+# cascade harness took 16-21 s at its full first batch
+EVAL_CPU_IMAGES = 4
 # steady-state files: 10 batches of 32 or 20 of 16 RHD, 10 of 16 STB
 STEADY_RHD_RECORDS = 320
 STEADY_STB_RECORDS = 160
@@ -183,6 +218,57 @@ ADAM_UPDATE_ATOL = 1e-5
 F32_SUBNORMAL = 2.0 ** -149
 
 RESUME_CHILD = "--train-resume-child"  # phase_train_resume's own process
+
+# serving: AutoBucketEstimator snapping other frames to the 240x320 bucket,
+# DynamicBatcher, the HTTP server, an exported program, the bf16 mode
+SERVE_BATCH = 8
+SERVE_FRAMES = ((480, 640), (300, 500))  # resized to (H, W) on the card
+SERVE_PARITY_IMAGES = 2  # per frame size, card vs CPU
+RESIZE_ATOL = 1e-5  # the card's antialiased resize vs the CPU's
+BATCHER_REQUESTS = 32
+BATCHER_CLIENTS = 16
+BATCHER_WAIT_MS = 5.0
+HTTP_CLIENTS = 4
+HTTP_POSTS_PER_CLIENT = 4
+HTTP_ROUND_TRIPS = 20
+DISPATCH_CALLS = 200  # op-dispatch cost: calls timed on the host
+# bf16 mode, card vs the port's bf16 CPU run: a bf16-rounded activation one
+# bf16 ulp (2^-8) apart on the two sides moves everything after it, so the
+# bounds are wider than f32's (measured values are printed)
+BF16_BATCHES = (1, 32, 128)
+BF16_SCOREMAP_ATOL = 2e-4  # measured 2.3e-5 (hand), 9.2e-6 (PoseNet)
+BF16_FLIP_BOUND = 4e-4
+BF16_COORD3D_ATOL = 2e-4  # measured 2.5e-5
+# each bf16 conv on the card (TF32 on rounded operands) vs the CPU's f32 conv
+# of the same rounded operands: products exact, sums in another order (the
+# tensor cores' included) of up to 7*7*149 terms: measured 1.4e-5 of the
+# layer's largest |output| (4e-6 for cuDNN's f32 path). TF32 on unrounded
+# operands, the witness that the check sees inexact products, is far above.
+BF16_CONV_RTOL_OF_MAX = 5e-5
+EXPORT_CHILD_CODE = """
+import json, sys, time
+import numpy as np
+t0 = time.perf_counter()
+from hand3d_tpu_torch.export import ExportedEstimator
+est = ExportedEstimator.load(sys.argv[1])
+load_s = time.perf_counter() - t0
+kernels = sys.modules["hand3d_tpu_torch.ops.kernels"]
+images = np.load(sys.argv[2])
+est.warmup()
+kernels.floodfill.launches = kernels.decode.launches = 0
+t0 = time.perf_counter()
+out = est.predict(images)
+predict_s = time.perf_counter() - t0
+np.savez(sys.argv[3], **out)
+print(json.dumps({"load_s": load_s, "predict_s": predict_s,
+                  "launches": {"flood_fill": kernels.floodfill.launches,
+                               "decode_upsampled": kernels.decode.launches},
+                  "model_modules": sorted(
+                      m for m in sys.modules
+                      if m.startswith("hand3d_tpu_torch.models")),
+                  "jax_modules": sorted(m for m in sys.modules
+                                        if m.split(".")[0] == "jax")}))
+"""
 
 KERNELS = {
     "flood_fill": ("hand3d_tpu_torch/csrc/floodfill.cu",
@@ -509,7 +595,10 @@ def kernel_times(det, seed, sm, iters=20):
 
 
 def phase_times(dev, params_np):
+    """Served f32 frames/s and the kernels' times at TIME_BATCHES (and at
+    batch 1 the op-dispatch cost); returns {batch: frames/s}."""
     rng = np.random.default_rng(2)
+    fps = {}
     for b in TIME_BATCHES:
         torch.cuda.reset_peak_memory_stats(dev)
         est = HandPoseEstimator(params_np, batch_size=b, input_hw=(H, W),
@@ -525,7 +614,10 @@ def phase_times(dev, params_np):
             est.hand_side)
         kt = kernel_times(det, seed, sm)
         fb = flood_bound(det, seed, NUM_PASSES)
+        if b == 1:
+            phase_dispatch(det, seed, sm, est, images)
         med = float(np.median(per_batch))
+        fps[b] = b * 1000.0 / med
         log(json.dumps({
             "batch": b, "input_hw": [H, W], "slice_ms_per_batch_median": med,
             "slice_ms_per_batch": per_batch, "frames_per_s": b * 1000.0 / med,
@@ -542,6 +634,7 @@ def phase_times(dev, params_np):
         del est
         torch.cuda.empty_cache()
         fixed_mask_times(dev, b)
+    return fps
 
 
 def fixed_mask_times(dev, b, iters=20):
@@ -566,6 +659,442 @@ def fixed_mask_times(dev, b, iters=20):
                 det_t, seed_t, NUM_PASSES), iters),
             "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
             "passes": fb["passes"]}))
+
+
+def kernel_counts():
+    return {"flood_fill": floodfill.launches,
+            "decode_upsampled": decode.launches}
+
+
+def zero_counts():
+    floodfill.launches = 0
+    decode.launches = 0
+
+
+def add_counts(total, counts):
+    for k in total:
+        total[k] += counts[k]
+
+
+def padded(images, batch):
+    """``images`` zero-padded to a whole chunk of ``batch``, as
+    chunked_predict pads its last chunk."""
+    pad = np.zeros((-len(images) % batch, *images.shape[1:]), images.dtype)
+    return np.concatenate([images, pad])
+
+
+def phase_serve_buckets(dev, params_np):
+    """AutoBucketEstimator with one 240x320 bucket on 480x640 and 300x500
+    uint8 frames: the card's resize held to the CPU's, the answers to the
+    bucket's cascade on the resized frames (uv and center mapped back), and
+    that cascade, flip-aware, to the port's CPU run on the same frames."""
+    rng = np.random.default_rng(5)
+    auto = AutoBucketEstimator(params_np, batch_size=SERVE_BATCH,
+                               snap_hws=[(H, W)], device=dev)
+    requests = [rng.integers(0, 256, (SERVE_BATCH // 2, h, w, 3), np.uint8)
+                for h, w in SERVE_FRAMES]
+    auto.predict(requests[0][:1])  # warm-up: cuDNN plans for the bucket
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [auto.predict(r) for r in requests]
+    ms = (time.perf_counter() - t0) * 1e3 / len(requests)
+    counts = kernel_counts()
+    for name, n in counts.items():
+        require(n > 0, f"AutoBucketEstimator never launched {name}")
+    require(list(auto._buckets) == [(H, W)], f"buckets {list(auto._buckets)}")
+    cpu_params = weights.params_from_jax(params_np, "cpu")
+    summaries = []
+    for frames, out in zip(requests, outs):
+        hw = frames.shape[1:3]
+        norm = normalize_images(frames)
+        resized = _resize_to(norm, (H, W), dev)
+        resize_err = float(np.abs(resized - _resize_to(norm, (H, W))).max())
+        require(resize_err <= RESIZE_ATOL,
+                f"{hw}: the card's resize differs from the CPU's by "
+                f"{resize_err}")
+        require(tuple(out["snap_hw"]) == (H, W), f"snap_hw {out['snap_hw']}")
+        batch = torch.from_numpy(padded(resized, SERVE_BATCH)).to(dev)
+        hand_side = auto._bucket((H, W)).hand_side
+        card = parity.port_fields(auto.params, batch, hand_side)
+        mapped = _map_back({k: card[k][:len(frames)] for k in (
+            "keypoint_uv21", "center")}, hw, (H, W))
+        for k in ("keypoint_uv21", "center"):
+            require(np.array_equal(out[k], mapped[k]),
+                    f"{hw}: served {k} is not the bucket's, mapped back")
+        for k in ("scale_crop", "keypoint_coord3d"):
+            require(np.array_equal(out[k], card[k][:len(frames)]),
+                    f"{hw}: served {k} differs from the bucket's run")
+        k = SERVE_PARITY_IMAGES
+        image = torch.from_numpy(resized[:k])
+        side = hand_side[:k].cpu()
+        ref = parity.port_fields(cpu_params, image, side)
+        got = parity.port_fields(auto.params, image.to(dev), side.to(dev))
+        summary = parity.check_cascade(
+            ref, got, parity.port_rerun(cpu_params, image, side),
+            scoremap_atol=SCOREMAP_ATOL, coord3d_atol=COORD3D_ATOL,
+            flip_bound=FLIP_BOUND)
+        summaries.append({"frame": list(hw), "resize_max_abs_err": resize_err,
+                          "card_vs_cpu": summary})
+    log(json.dumps({"serve": "AutoBucketEstimator", "bucket": [H, W],
+                    "batch": SERVE_BATCH, "frames": summaries,
+                    "ms_per_request": ms, "launches": counts}))
+    return counts
+
+
+def phase_serve_batcher(dev, params_np):
+    """DynamicBatcher over a batch-8 estimator: 32 one-image requests from 16
+    threads run as fewer device batches, and each answer equals its row of
+    a direct predict of the batch it rode in. Then the HTTP server in front
+    of it, and a batch-1 server's round trip."""
+    rng = np.random.default_rng(6)
+    est = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
+                            input_hw=(H, W), device=dev).warmup()
+    batches = []  # (images, outputs) of every device batch
+    inner = est.predict
+
+    def recording(images, normalized=False):
+        out = inner(images, normalized=normalized)
+        batches.append((images.copy(), out))
+        return out
+
+    est.predict = recording
+    frames = rng.integers(0, 256, (BATCHER_REQUESTS, 1, H, W, 3), np.uint8)
+    batcher = DynamicBatcher(est, max_batch=SERVE_BATCH,
+                             max_wait_ms=BATCHER_WAIT_MS)
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(BATCHER_CLIENTS) as pool:
+            answers = list(pool.map(batcher.predict, frames))
+        wall = time.perf_counter() - t0
+        add_counts(counts, kernel_counts())
+        require(len(batches) < BATCHER_REQUESTS,
+                f"{len(batches)} device batches for {BATCHER_REQUESTS} "
+                "requests: nothing coalesced")
+        for name, n in counts.items():
+            require(n > 0, f"the batcher never launched {name}")
+        norm = normalize_images(frames[:, 0])
+        for i, answer in enumerate(answers):
+            rows = [(b, r) for b, (images, _) in enumerate(batches)
+                    for r in range(len(images))
+                    if np.array_equal(images[r], norm[i])]
+            require(len(rows) >= 1, f"request {i} rode in no device batch")
+            b, r = rows[0]
+            direct = inner(batches[b][0], normalized=True)
+            for k, v in answer.items():
+                require(np.array_equal(v[0], direct[k][r]),
+                        f"request {i}: {k} differs from its batch's row")
+        sizes = [len(images) for images, _ in batches]
+        log(json.dumps({"serve": "DynamicBatcher", "requests":
+                        BATCHER_REQUESTS, "clients": BATCHER_CLIENTS,
+                        "max_batch": SERVE_BATCH,
+                        "max_wait_ms": BATCHER_WAIT_MS,
+                        "device_batches": sizes, "wall_s": wall,
+                        "images_per_s": BATCHER_REQUESTS / wall}))
+        round_trip = http_checks(dev, params_np, batcher.predict, counts)
+    finally:
+        batcher.close()
+    log(json.dumps({"serve": "HTTP", **round_trip, "launches": counts}))
+    return counts
+
+
+def post_npy(port, images):
+    """POST ``images`` as an .npy body to /predict: (status, JSON)."""
+    buf = io.BytesIO()
+    np.save(buf, images)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/predict", body=buf.getvalue(),
+                     headers={"Content-Type": "application/x-npy"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def serving(predict, meta, serialize):
+    """cli.serve's server on a free port, serving in a thread."""
+    srv = serve.make_server(predict, meta, port=0, serialize=serialize)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+
+def round_trips(port, image):
+    """Milliseconds of HTTP_ROUND_TRIPS one-image POSTs, one at a time."""
+    ms = []
+    for _ in range(HTTP_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        status, _ = post_npy(port, image)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require(status == 200, f"round trip answered {status}")
+    return ms
+
+
+def http_checks(dev, params_np, predict, counts):
+    """.npy POSTs from HTTP_CLIENTS threads to a server in front of the
+    batcher, /healthz and /metrics; the one-image round trip through it and
+    through a batch-1 server without the batcher (median of 20)."""
+    rng = np.random.default_rng(7)
+    posts = rng.integers(0, 256, (HTTP_CLIENTS * HTTP_POSTS_PER_CLIENT, H, W,
+                                  3), np.uint8)
+    with serving(predict, {"source": "chip_smoke"}, serialize=False) as port:
+        zero_counts()
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            replies = list(pool.map(lambda im: post_npy(port, im), posts))
+        for status, body in replies:
+            require(status == 200, f"/predict answered {status}: {body}")
+            require(np.asarray(body["keypoint_uv21"]).shape == (1, 21, 2)
+                    and np.isfinite(body["keypoint_coord3d"]).all(),
+                    "bad /predict body")
+        status, bad = post_npy(port, np.zeros((1, 8, 8, 3), np.uint8))
+        require(status == 500 and "expected" in bad["error"],
+                f"a wrong-size image answered {status}: {bad}")
+        status, health = get(port, "/healthz")
+        require(status == 200 and json.loads(health)["status"] == "ok",
+                f"/healthz: {status} {health}")
+        status, metrics = get(port, "/metrics")
+        want = (f"hand3d_requests_total {len(posts)}",
+                f"hand3d_images_total {len(posts)}", "hand3d_errors_total 1")
+        require(status == 200 and all(w in metrics for w in want),
+                f"/metrics: {metrics}")
+        batched_ms = round_trips(port, posts[:1])
+        add_counts(counts, kernel_counts())
+    single = HandPoseEstimator(params_np, batch_size=1, input_hw=(H, W),
+                               device=dev).warmup()
+    with serving(single.predict, {"source": "chip_smoke"},
+                 serialize=True) as port:
+        zero_counts()
+        single_ms = round_trips(port, posts[:1])
+        add_counts(counts, kernel_counts())
+    # the same server calling predict on each request's own handler thread
+    with serving(single.predict, {"source": "chip_smoke"},
+                 serialize=False) as port:
+        zero_counts()
+        handler_ms = round_trips(port, posts[:1])
+        add_counts(counts, kernel_counts())
+    return {"posts": len(posts), "clients": HTTP_CLIENTS,
+            "round_trip_ms_median_batcher": float(np.median(batched_ms)),
+            "round_trip_ms_median_batch1": float(np.median(single_ms)),
+            "round_trip_ms_batch1": single_ms,
+            "round_trip_ms_median_batch1_handler_threads": float(
+                np.median(handler_ms))}
+
+
+def phase_export(dev, params_np):
+    """export_estimator at batch 8 on the card, loaded by a child process
+    that imports only hand3d_tpu_torch.export: both kernels launch there and
+    its answers equal the live estimator's bit for bit."""
+    rng = np.random.default_rng(8)
+    images = rng.integers(0, 256, (SERVE_BATCH + 3, H, W, 3), np.uint8)
+    live = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
+                             input_hw=(H, W), device=dev).predict(images)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cascade.h3dx")
+        t0 = time.perf_counter()
+        blob = export_estimator(params_np, path, batch_size=SERVE_BATCH,
+                                input_hw=(H, W), device=dev)
+        export_s = time.perf_counter() - t0
+        np.save(os.path.join(tmp, "images.npy"), images)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD_CODE, path,
+             os.path.join(tmp, "images.npy"), os.path.join(tmp, "out.npz")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        sys.stderr.write(child.stderr[-4000:])
+        require(child.returncode == 0,
+                f"the export child exited {child.returncode}")
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        with np.load(os.path.join(tmp, "out.npz")) as data:
+            exported = {k: data[k] for k in data.files}
+    for name, n in report["launches"].items():
+        require(n > 0, f"the exported program never launched {name}")
+    require(not report["model_modules"] and not report["jax_modules"],
+            f"loading the artifact imported {report}")
+    require(set(exported) == set(live), f"exported keys {sorted(exported)}")
+    for k, v in live.items():
+        require(np.array_equal(exported[k], v),
+                f"exported {k} differs from the live estimator's")
+    log(json.dumps({"export": "torch.export", "batch": SERVE_BATCH,
+                    "input_hw": [H, W], "artifact_bytes": len(blob),
+                    "export_s": export_s, "child_s": child_s, **report,
+                    "outputs": "bit-equal to the live estimator"}))
+    return report["launches"]
+
+
+@contextlib.contextmanager
+def recorded_convs():
+    """Record every ops.nn.conv2d call: (x, params, stride, compute dtype,
+    output)."""
+    calls = []
+    base = nn.conv2d
+
+    def conv2d(x, params, stride=1, compute_dtype=None):
+        y = base(x, params, stride, compute_dtype)
+        calls.append((x, params, stride, compute_dtype, y))
+        return y
+
+    nn.conv2d = conv2d
+    try:
+        yield calls
+    finally:
+        nn.conv2d = base
+
+
+def bf16_conv_errs(dev, params_np):
+    """Each bf16 conv of a batch-1 forward on the card against the CPU's f32
+    conv of the same rounded operands: the worst error over the layer's
+    largest |output|, with TF32 (the bf16 path) and without it; and, as the
+    witness, TF32 on the layers' unrounded operands against f32 on them."""
+    net = ColorHandPose3D(compute_dtype="bfloat16")
+    params = weights.params_from_jax(params_np, dev)
+    image = torch.from_numpy(normalize_images(np.random.default_rng(9)
+                             .integers(0, 256, (1, H, W, 3), np.uint8)))
+    with recorded_convs() as calls, torch.inference_mode():
+        net.inference(params, image.to(dev), torch.tensor([[1.0, 0.0]],
+                                                          device=dev))
+    worst = {"tf32": 0.0, "f32": 0.0, "tf32_unrounded_witness": 0.0}
+
+    def err(got, want):
+        return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+    for x, p, stride, cd, y in calls:
+        require(cd == torch.bfloat16, "an f32 conv in the bf16 forward")
+        xr, wr = nn.rounded(x, cd), nn.rounded(p["weights"], cd)
+        want = nn._conv2d(xr.cpu(), wr.cpu(), p["biases"].cpu(), stride)
+        worst["tf32"] = max(worst["tf32"], err(y, want))
+        worst["f32"] = max(worst["f32"], err(  # TF32 is off here
+            nn._conv2d(xr, wr, p["biases"], stride), want))
+        with precision.tf32_convs(dev):
+            unrounded = nn._conv2d(x, p["weights"], p["biases"], stride)
+        worst["tf32_unrounded_witness"] = max(
+            worst["tf32_unrounded_witness"], err(unrounded, nn._conv2d(
+                x.cpu(), p["weights"].cpu(), p["biases"].cpu(), stride)))
+    require(worst["tf32"] <= BF16_CONV_RTOL_OF_MAX,
+            f"a bf16 conv on the card differs from f32 on its rounded "
+            f"operands by {worst} of its max")
+    require(worst["tf32_unrounded_witness"] > 4 * BF16_CONV_RTOL_OF_MAX,
+            f"TF32 looks exact on unrounded operands: {worst}")
+    require_exact_f32()
+    return len(calls), worst
+
+
+def phase_bf16(dev, params_np, f32_fps):
+    """HandPoseEstimator(compute_dtype="bfloat16") at batches 1 / 32 / 128:
+    frames/s beside f32's, its cascade held flip-aware to the port's bf16
+    CPU run, each bf16 conv to f32 on its rounded operands; TF32 off
+    afterwards."""
+    rng = np.random.default_rng(10)
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    rows = []
+    for b in BF16_BATCHES:
+        est = HandPoseEstimator(params_np, batch_size=b, input_hw=(H, W),
+                                compute_dtype="bfloat16", device=dev)
+        images = rng.integers(0, 256, (b, H, W, 3), dtype=np.uint8)
+        est.predict(images)
+        zero_counts()
+        per_batch = [cuda_ms(lambda: est.predict(images), 1)
+                     for _ in range(TIME_ITERS[b])]
+        add_counts(counts, kernel_counts())
+        require_exact_f32()
+        med = float(np.median(per_batch))
+        rows.append({"batch": b, "ms_per_batch_median": med,
+                     "frames_per_s": b * 1000.0 / med,
+                     "f32_frames_per_s": f32_fps[b]})
+        del est
+        torch.cuda.empty_cache()
+    net = ColorHandPose3D(compute_dtype="bfloat16")
+    image = torch.from_numpy(normalize_images(
+        rng.integers(0, 256, (2, H, W, 3), np.uint8)))
+    side = torch.tensor([[1.0, 0.0]] * 2)
+    cpu_params = weights.params_from_jax(params_np, "cpu")
+    ref = parity.port_fields(cpu_params, image, side, net=net)
+    got = parity.port_fields(weights.params_from_jax(params_np, dev),
+                             image.to(dev), side.to(dev), net=net)
+    summary = parity.check_cascade(
+        ref, got, parity.port_rerun(cpu_params, image, side, net=net),
+        scoremap_atol=BF16_SCOREMAP_ATOL, coord3d_atol=BF16_COORD3D_ATOL,
+        flip_bound=BF16_FLIP_BOUND)
+    n_convs, conv_err = bf16_conv_errs(dev, params_np)
+    log(json.dumps({"bf16": rows, "card_vs_cpu_bf16": summary,
+                    "tolerances": {"scoremap_atol": BF16_SCOREMAP_ATOL,
+                                   "coord3d_atol": BF16_COORD3D_ATOL,
+                                   "flip_bound": BF16_FLIP_BOUND},
+                    "convs_checked": n_convs,
+                    "conv_err_of_max": conv_err, "launches": counts}))
+    require_exact_f32()
+    return counts
+
+
+def phase_dispatch(det, seed, sm, est, images, rounds=4, iters=20):
+    """What the registered ops (torch.ops.hand3d.*) add to their bindings:
+    host microseconds a call of each, launched back to back (mean of
+    DISPATCH_CALLS after a warm-up), and batch-1 predict milliseconds (CUDA
+    events, median of ``iters``) through the ops and with the bindings
+    called directly, alternating ``rounds`` times in this process."""
+    pairs = {
+        "flood_fill": (lambda: torch.ops.hand3d.flood_fill(det, seed,
+                                                           NUM_PASSES),
+                       lambda: floodfill.flood_fill_cuda(det, seed,
+                                                         NUM_PASSES)),
+        "decode_upsampled": (
+            lambda: torch.ops.hand3d.decode_upsampled(sm, FACTOR),
+            lambda: decode.decode_upsampled_cuda(sm, FACTOR))}
+    out = {}
+    for name, (op, binding) in pairs.items():
+        require(torch.equal(op(), binding()), f"{name}: op != binding")
+        us = {}
+        for label, fn in (("op", op), ("binding", binding),
+                          ("op_again", op), ("binding_again", binding)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            us[label] = (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS
+            torch.cuda.synchronize()
+        us["dispatch_us"] = (us["op"] + us["op_again"] - us["binding"]
+                             - us["binding_again"]) / 2
+        out[name] = us
+    routes = {"op": (floodfill.flood_fill, decode.decode_upsampled),
+              "binding": (floodfill.flood_fill_cuda,
+                          decode.decode_upsampled_cuda)}
+    predict_ms = {"op": [], "binding": []}
+    try:
+        for _ in range(rounds):
+            for label, (fill, dec) in routes.items():
+                floodfill.flood_fill, decode.decode_upsampled = fill, dec
+                est.predict(images)
+                predict_ms[label].append(float(np.median(
+                    [cuda_ms(lambda: est.predict(images), 1)
+                     for _ in range(iters)])))
+    finally:
+        floodfill.flood_fill, decode.decode_upsampled = routes["op"]
+    log(json.dumps({"op_dispatch_host_us_per_call": out,
+                    "batch1_predict_ms": predict_ms,
+                    "batch1_predict_ms_median": {
+                        k: float(np.median(v))
+                        for k, v in predict_ms.items()}}))
 
 
 def write_rhd_file(path, n, rng):
@@ -773,16 +1302,18 @@ def eval_run(run, datasets, dev):
             "peak_mem_bytes": peak, "launches": counts, "metrics": scalars}
 
     t0 = time.perf_counter()
+    n = min(batch, EVAL_CPU_IMAGES)
     with recorded_dists() as cpu_rows:
-        run.call(dataset, batch, CPU, max_batches=1)
-    held, tol, note = run.held(dataset.raw_batch(np.arange(batch)))
-    require(card_rows[0].shape == cpu_rows[0].shape == (batch, 21),
+        run.call(dataset, n, CPU, max_batches=1)
+    held, tol, note = run.held(dataset.raw_batch(np.arange(n)))
+    require(card_rows[0].shape == (batch, 21)
+            and cpu_rows[0].shape == (n, 21),
             f"{run.label}: first batch {card_rows[0].shape}")
-    err = np.abs(card_rows[0] - cpu_rows[0])
+    err = np.abs(card_rows[0][:n] - cpu_rows[0])
     beyond = (err > tol) & held
     require(not beyond.any(), f"{run.label}: card dists differ from the "
             f"CPU's beyond the bound at {np.argwhere(beyond).tolist()}; {note}")
-    log(f"{run.label}: first batch of {batch}: card dists == CPU at "
+    log(f"{run.label}: first {n} of a batch of {batch}: card dists == CPU at "
         f"{int(held.sum())} of {held.size} keypoints (max err "
         f"{float(err[held].max()) if held.any() else 0.0:.3g}; CPU side "
         f"{time.perf_counter() - t0:.1f} s); {note}")
@@ -1457,18 +1988,37 @@ def train_resume_child(tmp, data):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     precision.exact_f32(dev)
+    phase_s = {}
+    t0 = time.perf_counter()
     phase_build()
     err = phase_kernel_parity(dev)
     params_np = weights.random_params(0)
     kernels = phase_slice(dev, params_np, err)
-    phase_times(dev, params_np)
-    eval_launches = phase_eval(dev, params_np, err)
-    train_launches = phase_train(dev)
+    phase_s["build_parity_slice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32_fps = phase_times(dev, params_np)
+    phase_s["times"] = time.perf_counter() - t0
+    launches = []
+    for name, phase in (
+            ("serve_buckets", lambda: phase_serve_buckets(dev, params_np)),
+            ("serve_batcher_http", lambda: phase_serve_batcher(dev,
+                                                               params_np)),
+            ("export", lambda: phase_export(dev, params_np)),
+            ("bf16", lambda: phase_bf16(dev, params_np, f32_fps)),
+            ("eval", lambda: phase_eval(dev, params_np, err)),
+            ("train", lambda: phase_train(dev))):
+        t0 = time.perf_counter()
+        launches.append(phase())
+        phase_s[name] = time.perf_counter() - t0
+    require_exact_f32()
+    log(json.dumps({"phase_s": phase_s,
+                    "total_s": time.perf_counter() - t_start}))
     for k in kernels:
-        k["launches"] += eval_launches[k["name"]] + train_launches[k["name"]]
+        k["launches"] += sum(counts[k["name"]] for counts in launches)
         k["max_abs_err"] = err[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -9,8 +9,10 @@ keypoints) while convolutions run NCHW inside.
 
 The two Pallas kernels of the JAX package are hand-written CUDA C++ here
 (``csrc/floodfill.cu``, ``csrc/decode.cu``), built with nvcc for sm_90a at
-first use (``ops/kernels``). A CUDA tensor goes through the kernel; a CPU
-tensor goes through its plain PyTorch twin. The package never imports jax.
+first use (``ops/kernels``) and registered as the ops
+``torch.ops.hand3d.flood_fill`` and ``torch.ops.hand3d.decode_upsampled``.
+A CUDA tensor goes through the kernel; a CPU tensor goes through its plain
+PyTorch twin. The package never imports jax.
 
 Package layout:
   precision.py exact f32 on the card (TF32 off), called by every entry point
@@ -23,8 +25,14 @@ Package layout:
                inference2d)
   data/        RHD / STB record codecs and readers, on-device preprocessing
   eval/        EPE / PCK / AUC metrics and the five eval harnesses
-  cli/         eval2d_gt_cropped, eval2d, eval3d, eval_full
-  serving.py   padded-batch HandPoseEstimator
+  train/       losses, Adam on the reference schedule, snapshots, fit loop
+  utils/       metrics logging, hand skeleton plots (viz)
+  cli/         eval2d_gt_cropped, eval2d, eval3d, eval_full, the four
+               train_* trainers, serve (HTTP), export_model, demo
+  batching.py  the predict() contract: normalize, chunk and pad
+  serving.py   HandPoseEstimator (f32 / bf16), SnapEstimator,
+               AutoBucketEstimator, DynamicBatcher
+  export.py    torch.export artifacts (H3DX container), ExportedEstimator
   parity.py    flip-aware cascade comparison shared by tests and chip_smoke
 """
 

@@ -4,7 +4,7 @@ hand3d_tpu/models/cascade.py, float path).
 HandSegNet -> single-blob mask (flood-fill kernel) -> bbox -> 256x256 crop
 -> PoseNet -> PosePrior + ViewpointNet -> upsampled-argmax keypoint decode
 (decode kernel) -> global (u, v). Params are the torch tree of
-``weights.params_from_jax``. The defaults (``seg_scale=1.0``, argmax
+``weights.params_from_jax``. The defaults (f32, ``seg_scale=1.0``, argmax
 decode) are reference parity.
 """
 
@@ -22,6 +22,17 @@ from hand3d_tpu_torch.ops.segmentation import (calc_center_bb,
 CROP_SIZE = 256  # ColorHandPose3DNetwork.py:31
 NUM_KP = 21
 DECODERS = ("argmax", "soft_argmax")
+COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
+
+
+def compute_dtype_of(name):
+    """None (f32) / "bfloat16" / torch.bfloat16 -> the ``ops.nn`` compute
+    dtype: None or torch.bfloat16."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be None or 'bfloat16', got "
+                         f"{name!r}")
+    return COMPUTE_DTYPES[name]
 
 
 class CascadeOutput(NamedTuple):
@@ -59,6 +70,11 @@ class ColorHandPose3D:
     """Full cascade: HandSegNet -> crop -> PoseNet -> PosePrior/Viewpoint.
 
     Args:
+      compute_dtype: None (f32, reference parity) or "bfloat16": the JAX
+        package's bf16 mode for every conv and FC of HandSegNet, PoseNet,
+        PosePrior and ViewpointNet (inputs and weights rounded to bf16,
+        f32 sums and outputs; ``ops.nn.conv2d``). The glue and both
+        kernels stay f32.
       decode: 2D keypoint decoder, "argmax" (reference parity) or
         "soft_argmax" (sub-pixel; an extension of the JAX package).
       seg_scale: localization resolution factor in (0, 1]. Below 1,
@@ -68,11 +84,12 @@ class ColorHandPose3D:
         is not validated against the reference.
     """
 
-    def __init__(self, decode="argmax", seg_scale=1.0):
+    def __init__(self, compute_dtype=None, decode="argmax", seg_scale=1.0):
         if decode not in DECODERS:
             raise ValueError(f"decode must be one of {DECODERS}, got {decode!r}")
         if not 0.0 < seg_scale <= 1.0:
             raise ValueError(f"seg_scale must be in (0, 1], got {seg_scale}")
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.decode = decode
         self.seg_scale = seg_scale
 
@@ -82,7 +99,8 @@ class ColorHandPose3D:
         if self.seg_scale != 1.0:
             image = resize_bilinear(image, (max(1, round(h * self.seg_scale)),
                                             max(1, round(w * self.seg_scale))))
-        return handsegnet.apply(params[handsegnet.SCOPE], image)[-1]
+        return handsegnet.apply(params[handsegnet.SCOPE], image,
+                                self.compute_dtype)[-1]
 
     @staticmethod
     def box_from_scoremap(hand_scoremap, image_hw):
@@ -133,21 +151,23 @@ class ColorHandPose3D:
         coord_hw = trafo_coords(coord_hw, center, scale_crop[:, 0], CROP_SIZE)
         return coord_hw.flip(-1)  # (row, col) -> (u, v)
 
-    @staticmethod
-    def crop_pose2d(params, image, center, scale_crop):
+    def crop_pose2d(self, params, image, center, scale_crop):
         """256x256 crop -> PoseNet: (image_crop, its last scoremap)."""
         image_crop = crop_image_from_xy(image, center, CROP_SIZE,
                                         scale_crop[:, 0])
-        return image_crop, posenet.apply(params[posenet.SCOPE], image_crop)[-1]
+        return image_crop, posenet.apply(params[posenet.SCOPE], image_crop,
+                                         self.compute_dtype)[-1]
 
     def pose_from_box(self, params, image, center, scale_crop, hand_side):
         """Crop -> PoseNet -> 3D lifting and 2D decode, for a given box."""
         image_crop, scoremap = self.crop_pose2d(params, image, center,
                                                 scale_crop)
         coord_can = poseprior.apply_poseprior(
-            params[poseprior.POSEPRIOR_SCOPE], scoremap, hand_side)
+            params[poseprior.POSEPRIOR_SCOPE], scoremap, hand_side,
+            compute_dtype=self.compute_dtype)
         rot_mat = poseprior.apply_viewpoint(
-            params[poseprior.VIEWPOINT_SCOPE], scoremap, hand_side)
+            params[poseprior.VIEWPOINT_SCOPE], scoremap, hand_side,
+            compute_dtype=self.compute_dtype)
         return PoseFromBox(
             image_crop, scoremap,
             poseprior.lift_to_relative(coord_can, rot_mat, hand_side),

@@ -39,8 +39,9 @@ def init(rng):
     return params
 
 
-def apply(params, image):
-    """image [B, H, W, 3] -> list of one [B, H, W, 2] segmentation scoremap."""
+def apply(params, image, compute_dtype=None):
+    """image [B, H, W, 3] -> list of one [B, H, W, 2] segmentation scoremap.
+    ``compute_dtype``: the convs' (``ops.nn.conv2d``)."""
     _, h, w, _ = image.shape
     x = image.permute(0, 3, 1, 2).contiguous()
     for layer in LAYERS:
@@ -48,7 +49,7 @@ def apply(params, image):
             x = nn.max_pool_2x2(x)
             continue
         name, _, _, relu = layer
-        x = nn.conv2d(x, params[name])
+        x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
         if relu:
             x = nn.leaky_relu(x)
     return [resize_bilinear(x.permute(0, 2, 3, 1), (h, w))]

@@ -56,22 +56,25 @@ def init(rng):
     return params
 
 
-def apply(params, image_crop):
-    """image_crop [B, H, W, 3] -> three [B, H/8, W/8, 21] scoremaps."""
+def apply(params, image_crop, compute_dtype=None):
+    """image_crop [B, H, W, 3] -> three [B, H/8, W/8, 21] scoremaps.
+    ``compute_dtype``: the convs' (``ops.nn.conv2d``)."""
     x = image_crop.permute(0, 3, 1, 2).contiguous()
     for layer in ENCODER:
         if layer == "pool":
             x = nn.max_pool_2x2(x)
         else:
-            x = nn.conv2d_relu(x, params[layer[0]])
+            x = nn.conv2d_relu(x, params[layer[0]],
+                               compute_dtype=compute_dtype)
     encoding = x
-    x = nn.conv2d_relu(encoding, params["conv5_1"])
-    scoremaps = [nn.conv2d(x, params["conv5_2"])]
+    x = nn.conv2d_relu(encoding, params["conv5_1"],
+                       compute_dtype=compute_dtype)
+    scoremaps = [nn.conv2d(x, params["conv5_2"], compute_dtype=compute_dtype)]
     for unit in range(NUM_REFINEMENT_UNITS):
         layers = refinement_layers(unit)
         x = torch.cat([scoremaps[-1], encoding], dim=1)
         for i, (name, _, _) in enumerate(layers):
-            x = nn.conv2d(x, params[name])
+            x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
             if i < len(layers) - 1:
                 x = nn.leaky_relu(x)
         scoremaps.append(x)

@@ -47,12 +47,14 @@ def _tower_init(rng, chans):
     return params
 
 
-def _tower_apply(params, scoremap, hand_side, chans):
+def _tower_apply(params, scoremap, hand_side, chans, compute_dtype=None):
     """[B, 32, 32, 21] -> [B, 4*4*C + 2] flattened in NHWC order + hand side."""
     x = scoremap.permute(0, 3, 1, 2).contiguous()
     for i in range(len(chans)):
-        x = nn.conv2d_relu(x, params[f"{_prefix(chans)}_{i}_1"])
-        x = nn.conv2d_relu(x, params[f"{_prefix(chans)}_{i}_2"], stride=2)
+        x = nn.conv2d_relu(x, params[f"{_prefix(chans)}_{i}_1"],
+                           compute_dtype=compute_dtype)
+        x = nn.conv2d_relu(x, params[f"{_prefix(chans)}_{i}_2"], stride=2,
+                           compute_dtype=compute_dtype)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
     return torch.cat([x, hand_side.to(x.dtype)], dim=1)
 
@@ -82,24 +84,34 @@ def init_viewpoint(rng):
     return params
 
 
-def apply_poseprior(params, scoremap, hand_side, train=False, generator=None):
-    """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 21, 3] canonical."""
-    x = _tower_apply(params, scoremap, hand_side, POSE_CHANS)
-    x = nn.dropout(nn.dense_relu(x, params["fc_rel0"]), 0.8, train, generator)
-    x = nn.dropout(nn.dense_relu(x, params["fc_rel1"]), 0.8, train, generator)
+def apply_poseprior(params, scoremap, hand_side, train=False, generator=None,
+                    compute_dtype=None):
+    """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 21, 3] canonical.
+    ``compute_dtype``: the convs' and FCs' (``ops.nn``)."""
+    cd = compute_dtype
+    x = _tower_apply(params, scoremap, hand_side, POSE_CHANS, cd)
+    x = nn.dropout(nn.dense_relu(x, params["fc_rel0"], cd), 0.8, train,
+                   generator)
+    x = nn.dropout(nn.dense_relu(x, params["fc_rel1"], cd), 0.8, train,
+                   generator)
     if "fc_bottleneck" in params:
-        x = nn.dense(x, params["fc_bottleneck"])
-    return nn.dense(x, params["fc_xyz"]).reshape(-1, NUM_KP, 3)
+        x = nn.dense(x, params["fc_bottleneck"], cd)
+    return nn.dense(x, params["fc_xyz"], cd).reshape(-1, NUM_KP, 3)
 
 
-def apply_viewpoint(params, scoremap, hand_side, train=False, generator=None):
-    """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 3, 3] rotation."""
-    x = _tower_apply(params, scoremap, hand_side, VP_CHANS)
-    x = nn.dropout(nn.dense_relu(x, params["fc_vp0"]), 0.75, train, generator)
-    x = nn.dropout(nn.dense_relu(x, params["fc_vp1"]), 0.75, train, generator)
-    return rodrigues_rot_mat(nn.dense(x, params["fc_vp_ux"]),
-                             nn.dense(x, params["fc_vp_uy"]),
-                             nn.dense(x, params["fc_vp_uz"]))
+def apply_viewpoint(params, scoremap, hand_side, train=False, generator=None,
+                    compute_dtype=None):
+    """[B, 32, 32, 21] scoremap + [B, 2] hand side -> [B, 3, 3] rotation.
+    ``compute_dtype``: the convs' and FCs' (``ops.nn``)."""
+    cd = compute_dtype
+    x = _tower_apply(params, scoremap, hand_side, VP_CHANS, cd)
+    x = nn.dropout(nn.dense_relu(x, params["fc_vp0"], cd), 0.75, train,
+                   generator)
+    x = nn.dropout(nn.dense_relu(x, params["fc_vp1"], cd), 0.75, train,
+                   generator)
+    return rodrigues_rot_mat(nn.dense(x, params["fc_vp_ux"], cd),
+                             nn.dense(x, params["fc_vp_uy"], cd),
+                             nn.dense(x, params["fc_vp_uz"], cd))
 
 
 def lift_to_relative(coord_can, rot_mat, hand_side):

@@ -1,6 +1,11 @@
 """Binding of the CUDA upsampled-argmax decode kernel (``csrc/decode.cu``),
-the port of hand3d_tpu/ops/pallas/decode.py. Its plain twin is
-``ops.keypoints.decode_upsampled_torch``.
+the port of hand3d_tpu/ops/pallas/decode.py, and the registered op
+``torch.ops.hand3d.decode_upsampled`` that every caller goes through.
+
+The op's CUDA implementation is ``decode_upsampled_cuda``; its CPU
+implementation is the plain twin ``ops.keypoints.decode_upsampled_torch``,
+looked up at each call; its fake implementation gives the [B, K, 2] shape
+to ``torch.export``.
 """
 
 import ctypes
@@ -82,3 +87,23 @@ def decode_upsampled_cuda(scoremap, factor):
     build.check(err, lib, "decode kernel")
     launches += 1
     return out
+
+
+@torch.library.custom_op("hand3d::decode_upsampled", mutates_args=(),
+                         device_types="cuda")
+def decode_upsampled(scoremap: torch.Tensor, factor: int) -> torch.Tensor:
+    """``decode_upsampled_cuda`` on a CUDA tensor, the twin on a CPU one."""
+    return decode_upsampled_cuda(scoremap, factor)
+
+
+@decode_upsampled.register_kernel("cpu")
+def _decode_upsampled_cpu(scoremap, factor):
+    from hand3d_tpu_torch.ops import keypoints
+
+    return keypoints.decode_upsampled_torch(scoremap, factor)
+
+
+@decode_upsampled.register_fake
+def _decode_upsampled_fake(scoremap, factor):
+    b, _, _, k = scoremap.shape
+    return scoremap.new_empty((b, k, 2), dtype=torch.float32)

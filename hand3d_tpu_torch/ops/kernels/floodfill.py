@@ -1,6 +1,12 @@
 """Binding of the CUDA flood-fill kernel (``csrc/floodfill.cu``), the port
-of hand3d_tpu/ops/pallas/floodfill.py. Its plain twin is
-``ops.segmentation.flood_fill_torch``.
+of hand3d_tpu/ops/pallas/floodfill.py, and the registered op
+``torch.ops.hand3d.flood_fill`` that every caller goes through.
+
+The op's CUDA implementation is ``flood_fill_cuda``; its CPU implementation
+is the plain twin ``ops.segmentation.flood_fill_torch``, looked up at each
+call. Its fake implementation gives the output's shape, so ``torch.export``
+traces the cascade through the op without running the fill (the twin stops
+at a data-dependent fixed point, the kernel takes raw pointers).
 """
 
 import ctypes
@@ -86,3 +92,23 @@ def flood_fill_cuda(detmap, seed_rc, num_passes):
     build.check(err, lib, "flood fill kernel")
     launches += 1
     return out
+
+
+@torch.library.custom_op("hand3d::flood_fill", mutates_args=(),
+                         device_types="cuda")
+def flood_fill(detmap: torch.Tensor, seed_rc: torch.Tensor,
+               num_passes: int) -> torch.Tensor:
+    """``flood_fill_cuda`` on a CUDA tensor, the twin on a CPU tensor."""
+    return flood_fill_cuda(detmap, seed_rc, num_passes)
+
+
+@flood_fill.register_kernel("cpu")
+def _flood_fill_cpu(detmap, seed_rc, num_passes):
+    from hand3d_tpu_torch.ops import segmentation
+
+    return segmentation.flood_fill_torch(detmap, seed_rc, num_passes)
+
+
+@flood_fill.register_fake
+def _flood_fill_fake(detmap, seed_rc, num_passes):
+    return torch.empty_like(detmap)

@@ -1,8 +1,9 @@
 """Keypoint decoding + coordinate transforms (counterpart of
 hand3d_tpu/ops/keypoints.py).
 
-``decode_upsampled`` is the CUDA kernel ``ops/kernels/decode.py`` for a CUDA
-tensor and ``decode_upsampled_torch``, its plain twin, for a CPU tensor.
+``decode_upsampled`` is the registered op ``torch.ops.hand3d.decode_upsampled``
+(``ops/kernels/decode.py``): the CUDA kernel for a CUDA tensor and
+``decode_upsampled_torch``, its plain twin, for a CPU tensor.
 """
 
 import torch
@@ -46,11 +47,9 @@ def decode_upsampled(scoremap, factor):
     """Argmax keypoint decode over a ``factor``-times bilinear upsampling of
     ``scoremap`` [B, h, w, K] -> [B, K, 2] (row, col in the upsampled grid).
     Ties go to the smallest row-major index of the upsampled map."""
-    if scoremap.is_cuda:
-        return decode.decode_upsampled_cuda(scoremap, factor)
-    if scoremap.device.type == "cpu":
-        return decode_upsampled_torch(scoremap, factor)
-    raise ValueError(f"no keypoint decode for device {scoremap.device}")
+    if scoremap.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no keypoint decode for device {scoremap.device}")
+    return decode.decode_upsampled(scoremap, factor)
 
 
 def trafo_coords(keypoints_crop_coords, centers, scale, crop_size):

@@ -6,8 +6,12 @@ converts the TF-layout HWIO kernels once. Dense kernels stay [in, out].
 Dropout masks are drawn on a CPU ``torch.Generator`` and moved to the
 device, so a training step's masks do not depend on where it runs.
 Convolutions and matmuls go to cuDNN / cuBLAS, as the JAX package left them
-to XLA. The initializers are numpy so ``weights.random_params`` needs no
-torch RNG and no jax.
+to XLA. With ``compute_dtype=torch.bfloat16`` a conv or matmul follows
+the JAX package's bf16 mode: its input and weights are rounded to bf16, the
+products summed in f32, the output f32 and the bias added in f32. That is
+an f32 conv on bf16-rounded operands, not PyTorch's bf16 conv, which rounds
+its output to bf16 too. The initializers are numpy so
+``weights.random_params`` needs no torch RNG and no jax.
 """
 
 import math
@@ -15,6 +19,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from hand3d_tpu_torch import precision
 
 NEG_SLOPE_OF_RELU = 0.01  # general.py:28
 CONV_BIAS_INIT = 1e-4  # general.py:50
@@ -33,9 +39,30 @@ def _same_pads(size, k, s):
     return total // 2, total - total // 2
 
 
-def conv2d(x, params, stride=1):
-    """TF-SAME conv + bias on NCHW ``x``; params {"weights": OIHW, "biases"}."""
-    w, b = params["weights"], params["biases"]
+def rounded(x, compute_dtype):
+    """``x`` rounded to ``compute_dtype`` (bf16) and held in f32; ``x`` when
+    ``compute_dtype`` is None."""
+    if compute_dtype is None:
+        return x
+    return x.to(compute_dtype).to(torch.float32)
+
+
+def conv2d(x, params, stride=1, compute_dtype=None):
+    """TF-SAME conv + bias on NCHW ``x``; params {"weights": OIHW, "biases"}.
+
+    ``compute_dtype=torch.bfloat16``: x and the weights rounded to bf16, the
+    conv in f32 with TF32 allowed for this call on the card (exact for such
+    operands, ``precision.tf32_convs``).
+    """
+    if compute_dtype is None:
+        return _conv2d(x, params["weights"], params["biases"], stride)
+    with precision.tf32_convs(x.device):
+        return _conv2d(rounded(x, compute_dtype),
+                       rounded(params["weights"], compute_dtype),
+                       params["biases"], stride)
+
+
+def _conv2d(x, w, b, stride):
     kh, kw = w.shape[2:]
     pt, pb = _same_pads(x.shape[2], kh, stride)
     pl, pr = _same_pads(x.shape[3], kw, stride)
@@ -45,8 +72,8 @@ def conv2d(x, params, stride=1):
     return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, b, stride=stride)
 
 
-def conv2d_relu(x, params, stride=1):
-    return leaky_relu(conv2d(x, params, stride))
+def conv2d_relu(x, params, stride=1, compute_dtype=None):
+    return leaky_relu(conv2d(x, params, stride, compute_dtype))
 
 
 def max_pool_2x2(x):
@@ -75,13 +102,19 @@ def avg_pool(x, size, stride=None):
     return window_sums(x) / window_sums(torch.ones_like(x[:1, :1]))
 
 
-def dense(x, params):
-    """matmul + bias; params {"weights": [in, out], "biases": [out]}."""
-    return torch.matmul(x, params["weights"]) + params["biases"]
+def dense(x, params, compute_dtype=None):
+    """matmul + bias; params {"weights": [in, out], "biases": [out]}.
+
+    ``compute_dtype=torch.bfloat16``: x and the weights rounded to bf16, the
+    matmul in exact f32 (these layers are small; TF32 stays off for cuBLAS).
+    """
+    return (torch.matmul(rounded(x, compute_dtype),
+                         rounded(params["weights"], compute_dtype))
+            + params["biases"])
 
 
-def dense_relu(x, params):
-    return leaky_relu(dense(x, params))
+def dense_relu(x, params, compute_dtype=None):
+    return leaky_relu(dense(x, params, compute_dtype))
 
 
 def keep_mask(generator, keep_prob, shape, device):

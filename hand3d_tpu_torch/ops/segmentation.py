@@ -1,9 +1,10 @@
 """Mask post-processing: blob selection and bounding boxes (counterpart of
 hand3d_tpu/ops/segmentation.py).
 
-The flood fill of ``single_obj_scoremap`` is the CUDA kernel
-``ops/kernels/floodfill.py`` for a CUDA tensor and ``flood_fill_torch``, its
-plain twin, for a CPU tensor. Nothing else selects between them.
+The flood fill of ``single_obj_scoremap`` is the registered op
+``torch.ops.hand3d.flood_fill`` (``ops/kernels/floodfill.py``): the CUDA
+kernel for a CUDA tensor, ``flood_fill_torch``, its plain twin, for a CPU
+tensor. Nothing else selects between them.
 """
 
 import torch
@@ -74,13 +75,9 @@ def single_obj_scoremap(scoremap, num_passes=None):
     if num_passes is None:
         num_passes = max(h, w) // (DILATION_FILTER_SIZE // 2)
     _, detmap, seed = foreground(scoremap)
-    if detmap.is_cuda:
-        obj = floodfill.flood_fill_cuda(detmap, seed, num_passes)
-    elif detmap.device.type == "cpu":
-        obj = flood_fill_torch(detmap, seed, num_passes)
-    else:
+    if detmap.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flood fill for device {detmap.device}")
-    return obj[..., None]
+    return floodfill.flood_fill(detmap, seed, num_passes)[..., None]
 
 
 def calc_center_bb(binary_class_mask, fallback_center=(160.0, 160.0),

@@ -5,7 +5,14 @@ to TF32 (``torch.backends.cudnn.allow_tf32 = True``), which keeps about three
 decimal digits: enough to flip the mask and keypoint argmaxes the parity
 checks rely on. Every entry point that puts parameters on a CUDA device calls
 ``exact_f32`` first. The two flags are process-wide.
+
+The bf16 compute mode is the one exception: a convolution of operands
+rounded to bf16 (8 significant bits) is exact in TF32 (11 bits), so
+``tf32_convs`` lets cuDNN use the tensor cores for exactly those calls and
+restores the flag after each. cuBLAS stays exact f32 throughout.
 """
+
+import contextlib
 
 import torch
 
@@ -25,3 +32,27 @@ def exact_f32(device):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def tf32_convs(device):
+    """Context in which cuDNN may use TF32 on a CUDA ``device``; the flag is
+    restored on exit. Only for convolutions whose operands are rounded to
+    bf16, where TF32 multiplies exactly and accumulates in f32: the JAX
+    package's bf16 semantics. A no-op on the CPU.
+
+    The flag is process-wide, so the card is driven from one thread at a
+    time (``serving.DynamicBatcher``, the HTTP server's lock).
+    """
+    if torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return _cudnn_tf32()
+
+
+@contextlib.contextmanager
+def _cudnn_tf32():
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before

@@ -256,3 +256,84 @@ def test_decode_kernel_follows_the_grid_at_factor_49(cuda):
     torch.cuda.synchronize()
     assert got.tolist() == [[[0.0, 49.0]]]
     assert torch.equal(got, keypoints.decode_upsampled_torch(sm, 49))
+
+
+# --- the registered ops (torch.ops.hand3d.*) -----------------------------------
+
+
+def _op_inputs(device):
+    rng = np.random.default_rng(3)
+    det, seed = _flood_inputs(3, 37, 64, rng)
+    sm = _decode_specials((2, 16, 16, 7), rng)
+    return (torch.from_numpy(det).to(device), torch.from_numpy(seed).to(device),
+            torch.from_numpy(sm).to(device))
+
+
+@pytest.mark.parametrize("op", ["flood_fill", "decode_upsampled"])
+def test_registered_op_passes_opcheck_on_the_cpu(op):
+    """Schema, fake (shape) implementation, autograd registration and
+    tracing with dynamic shapes, as torch.export needs them."""
+    det, seed, sm = _op_inputs("cpu")
+    args = (det, seed, 4) if op == "flood_fill" else (sm, 4)
+    torch.library.opcheck(getattr(torch.ops.hand3d, op).default, args)
+
+
+def test_registered_ops_take_the_twins_on_the_cpu():
+    det, seed, sm = _op_inputs("cpu")
+    counts = floodfill.launches, decode.launches
+    assert torch.equal(torch.ops.hand3d.flood_fill(det, seed, 4),
+                       segmentation.flood_fill_torch(det, seed, 4))
+    assert torch.equal(torch.ops.hand3d.decode_upsampled(sm, 4),
+                       keypoints.decode_upsampled_torch(sm, 4))
+    assert (floodfill.launches, decode.launches) == counts  # no kernel ran
+
+
+def test_registered_ops_have_fake_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        det = torch.empty((5, 30, 40))
+        seed = torch.empty((5, 2), dtype=torch.int32)
+        sm = torch.empty((5, 32, 32, 21))
+        assert torch.ops.hand3d.flood_fill(det, seed, 3).shape == (5, 30, 40)
+        out = torch.ops.hand3d.decode_upsampled(sm, 8)
+        assert out.shape == (5, 21, 2) and out.dtype == torch.float32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_registered_ops_launch_the_kernels_on_the_card(cuda, b):
+    """op == binding == twin on the card, and the op launches the kernel
+    (its count rises by one a call)."""
+    rng = np.random.default_rng(b)
+    det, seed = _band_cases(b, 240, 320, rng)
+    det_t = torch.from_numpy(det).to(cuda)
+    seed_t = torch.from_numpy(seed).to(cuda)
+    sm_t = torch.from_numpy(_decode_specials((b, 32, 32, 21), rng)).to(cuda)
+    before = floodfill.launches, decode.launches
+    fill = torch.ops.hand3d.flood_fill(det_t, seed_t, 32)
+    dec = torch.ops.hand3d.decode_upsampled(sm_t, 8)
+    assert (floodfill.launches, decode.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(fill, floodfill.flood_fill_cuda(det_t, seed_t, 32))
+    assert torch.equal(fill, segmentation.flood_fill_torch(det_t, seed_t, 32))
+    assert torch.equal(dec, decode.decode_upsampled_cuda(sm_t, 8))
+    assert torch.equal(dec, keypoints.decode_upsampled_torch(sm_t, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["flood_fill", "decode_upsampled"])
+def test_registered_op_passes_opcheck_on_the_card(cuda, op):
+    det, seed, sm = _op_inputs(cuda)
+    args = (det, seed, 4) if op == "flood_fill" else (sm, 4)
+    torch.library.opcheck(getattr(torch.ops.hand3d, op).default, args)
+
+
+@pytest.mark.gpu
+def test_a_failed_launch_raises_through_the_op(cuda):
+    """Nothing falls back to the twin: the op raises as the binding does."""
+    det = torch.zeros((1, 4000, 4000), device=cuda)  # over the size limit
+    seed = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        torch.ops.hand3d.flood_fill(det, seed, 1)
