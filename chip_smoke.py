@@ -82,7 +82,19 @@ line is printed:
    deterministic algorithms, in a child process with
    CUBLAS_WORKSPACE_CONFIG set (the other phases run without it); a
    torch.profiler window of 3 PoseNet steps gives the conv and idle shares.
-   TF32 must stay off.
+   TF32 must stay off;
+11. weights: the slice's tree written in the reference's formats,
+   handsegnet-rhd.pickle and posenet3d-rhd-stb.pickle (names with ':0') and
+   a CPM-MPII-shaped TF checkpoint (Adam slots, beta powers, global_step),
+   each loaded through cli._common.load_weight_trees: every array equal to
+   its source bit for bit, the warm-start rules taking exactly the layers
+   they should, every seeded layer outside the file keeping its value;
+   cli.eval2d on the pickles over a synthetic RHD file, both kernels
+   launched, its decoded keypoints and distances equal to the run on the
+   .npz of the same tree, each decode equal to its twin; 3 steps of
+   train_posenet warm-started from the checkpoint, step 0 holding the
+   checkpoint's PoseNet2D layers and the trainer's seeded others, its
+   in-training eval launching the decode kernel.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -94,6 +106,7 @@ import http.client
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -107,14 +120,14 @@ import torch
 import torch.nn.functional as F
 
 from hand3d_tpu_torch import parity, precision, weights
-from hand3d_tpu_torch.cli import (train_handsegnet, train_joint,
-                                  train_lifting, train_posenet)
+from hand3d_tpu_torch.cli import (_common, eval2d, train_handsegnet,
+                                  train_joint, train_lifting, train_posenet)
 from hand3d_tpu_torch.data import augment, codec
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd, preprocess_stb
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
 from hand3d_tpu_torch.eval import harnesses
-from hand3d_tpu_torch.models import posenet
+from hand3d_tpu_torch.models import cascade, posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.models.poseprior import VARIANTS
 from hand3d_tpu_torch.ops import keypoints, nn, segmentation
@@ -126,6 +139,7 @@ from hand3d_tpu_torch.serving import (AutoBucketEstimator, DynamicBatcher,
                                       HandPoseEstimator, _map_back,
                                       _resize_to, normalize_images)
 from hand3d_tpu_torch.train import loop, trainer
+from hand3d_tpu_torch.weights import tf_ckpt
 
 CPU = torch.device("cpu")
 H, W = 240, 320  # the serving bucket of the JAX package's bench and demo
@@ -218,6 +232,12 @@ ADAM_UPDATE_ATOL = 1e-5
 F32_SUBNORMAL = 2.0 ** -149
 
 RESUME_CHILD = "--train-resume-child"  # phase_train_resume's own process
+
+# weights: the reference's pickles and a CPM-MPII-shaped TF checkpoint of the
+# slice's tree through --weights; eval2d and train_posenet on a small file
+WEIGHTS_RECORDS = 16
+WEIGHTS_BATCH = 8
+WEIGHTS_TRAIN_STEPS = 3
 
 # serving: AutoBucketEstimator snapping other frames to the 240x320 bucket,
 # DynamicBatcher, the HTTP server, an exported program, the bf16 mode
@@ -1476,22 +1496,22 @@ def timed_steps():
 
 
 @contextlib.contextmanager
-def recorded_decodes():
-    """Record the scoremaps the eval harnesses decode, with what the decode
-    returned for them."""
+def recorded_decodes(module=harnesses):
+    """Record the scoremaps that ``module`` (the eval harnesses, or the
+    cascade) decodes, with what the decode returned for them."""
     calls = []
-    base = harnesses.decode_upsampled
+    base = module.decode_upsampled
 
     def recording(scoremap, factor):
         out = base(scoremap, factor)
         calls.append((scoremap.clone(), factor, out.clone()))
         return out
 
-    harnesses.decode_upsampled = recording
+    module.decode_upsampled = recording
     try:
         yield calls
     finally:
-        harnesses.decode_upsampled = base
+        module.decode_upsampled = base
 
 
 class Kinks(NamedTuple):
@@ -1987,6 +2007,169 @@ def train_resume_child(tmp, data):
         "algorithms, in a child process)")
 
 
+def write_reference_pickles(tmp, params_np):
+    """handsegnet-rhd.pickle and posenet3d-rhd-stb.pickle as the reference
+    ships them, {variable name + ':0': ndarray}, from ``params_np``."""
+    paths = []
+    for name, scopes in (("handsegnet-rhd.pickle", ("HandSegNet",)),
+                         ("posenet3d-rhd-stb.pickle",
+                          ("PoseNet2D", "PosePrior", "ViewpointNet"))):
+        flat = weights.tree_to_flat({s: params_np[s] for s in scopes})
+        paths.append(os.path.join(tmp, name))
+        with open(paths[-1], "wb") as f:
+            pickle.dump({k + ":0": v for k, v in flat.items()}, f,
+                        protocol=2)
+    return paths
+
+
+def write_cpm_checkpoint(prefix, params_np):
+    """A TF checkpoint in the CPM-MPII warm start's layout, from the same
+    HandSegNet and PoseNet arrays: HandSegNet's layers under
+    CPM/PersonNet/<layer>_CPM, PoseNet's trunk under CPM/PoseNet/<layer>_CPM
+    (its refiners are Mconv layers in the real model: one decoy stands for
+    them), with Adam's two slots of every variable, the beta powers and
+    global_step. Returns {scope: layers} that the warm-start rules must
+    take: all but HandSegNet's conv6_* and PoseNet's conv5_2."""
+    ckpt = {}
+    for scope, net in (("HandSegNet", "PersonNet"), ("PoseNet2D", "PoseNet")):
+        for name, value in weights.tree_to_flat(params_np[scope]).items():
+            layer, leaf = name.split("/")
+            if scope == "PoseNet2D" and layer.startswith(("conv6", "conv7")):
+                continue
+            var = f"CPM/{net}/{layer}_CPM/{leaf}"
+            ckpt[var] = ckpt[var + "/Adam"] = ckpt[var + "/Adam_1"] = value
+    ckpt["CPM/PoseNet/Mconv1_stage2/weights"] = \
+        params_np["PoseNet2D"]["conv6_1"]["weights"]
+    ckpt["beta1_power"] = np.asarray(0.9, np.float32)
+    ckpt["beta2_power"] = np.asarray(0.999, np.float32)
+    ckpt["global_step"] = np.asarray(300000, np.int64)
+    tf_ckpt.write_checkpoint(prefix, ckpt)
+    return {"HandSegNet": {k for k in params_np["HandSegNet"]
+                           if not k.startswith("conv6")},
+            "PoseNet2D": {k for k in params_np["PoseNet2D"]
+                          if not k.startswith(("conv5_2", "conv6", "conv7"))}}
+
+
+def require_layers(tree, source, label):
+    """Every array of ``tree`` equals its ``source`` array bit for bit."""
+    flat, src = weights.tree_to_flat(tree), weights.tree_to_flat(source)
+    for k, v in flat.items():
+        require(k in src and v.dtype == src[k].dtype
+                and np.array_equal(v, src[k]), f"{label}: {k} differs from "
+                "the array it was written from")
+
+
+def phase_weights(dev, params_np):
+    """Phase 11: the reference's weight formats through --weights. Returns
+    the kernel launches of the eval2d run on the pickles and of the
+    warm-started training run."""
+    t_phase = time.perf_counter()
+    line = {"phase": "weights", "load_s": {}}
+    launches = {"flood_fill": 0, "decode_upsampled": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pickles = write_reference_pickles(tmp, params_np)
+        cpm = os.path.join(tmp, "cpm-model-mpii")
+        taken = write_cpm_checkpoint(cpm, params_np)
+        npz = os.path.join(tmp, "w.npz")
+        weights.save_npz(npz, params_np)
+        rhd = os.path.join(tmp, "rhd.bin")
+        write_rhd_file(rhd, WEIGHTS_RECORDS, np.random.default_rng(5))
+        line["write_s"] = time.perf_counter() - t0
+        line["bytes"] = {os.path.basename(p): os.path.getsize(p)
+                         for p in (*pickles, cpm + ".data-00000-of-00001")}
+
+        # each file alone: its arrays bit for bit, its scopes only
+        for path, scopes in zip(pickles, (["HandSegNet"], [
+                "PoseNet2D", "PosePrior", "ViewpointNet"])):
+            t0 = time.perf_counter()
+            tree = _common.load_weight_trees([path])
+            line["load_s"][os.path.basename(path)] = time.perf_counter() - t0
+            require(sorted(tree) == scopes and all(
+                tree[s].keys() == params_np[s].keys() for s in scopes),
+                f"{path}: scopes or layers differ")
+            require_layers(tree, params_np, os.path.basename(path))
+        t0 = time.perf_counter()
+        tree = _common.load_weight_trees([cpm])
+        line["load_s"]["cpm-model-mpii"] = time.perf_counter() - t0
+        require({s: set(v) for s, v in tree.items()} == taken,
+                f"the CPM checkpoint gave {sorted(tree)}: "
+                f"{ {s: sorted(v) for s, v in tree.items()} }")
+        require_layers(tree, params_np, "cpm-model-mpii")
+        # layers the checkpoint does not name keep their seeded values
+        seeded = weights.random_params(1)
+        kept = {k: v.copy() for k, v in weights.tree_to_flat(seeded).items()}
+        merged = weights.tree_to_flat(_common.init_or_load(seeded, [cpm]))
+        from_file = weights.tree_to_flat(tree)
+        require(merged.keys() == kept.keys(), "init_or_load changed names")
+        for k, v in merged.items():
+            require(np.array_equal(v, from_file.get(k, kept[k])),
+                    f"init_or_load: {k} is neither the file's nor the seed's")
+        line["cpm_layers_taken"] = {s: len(v) for s, v in taken.items()}
+
+        # eval2d on the pickles and on the .npz of the same tree: the same
+        # decoded keypoints and distances, exactly
+        runs = {}
+        for label, files in (("pickles", pickles), ("npz", [npz])):
+            zero_counts()
+            with recorded_dists() as dists, \
+                    recorded_decodes(cascade) as decodes:
+                eval2d.main(["--data", rhd, "--batch-size",
+                             str(WEIGHTS_BATCH), "--no-wrist", "--weights",
+                             *files])
+            torch.cuda.synchronize()
+            runs[label] = (dists, decodes, kernel_counts())
+        (p_dists, p_decodes, counts), (n_dists, n_decodes, _) = \
+            runs["pickles"], runs["npz"]
+        for name, n in counts.items():
+            require(n > 0, f"eval2d on the pickles never launched {name}")
+        add_counts(launches, counts)
+        require(len(p_decodes) == len(n_decodes) == len(p_dists) > 0,
+                "eval2d ran other batches on the two files")
+        with torch.inference_mode():
+            for (sm, factor, got), (_, _, want) in zip(p_decodes, n_decodes):
+                require(torch.equal(got, want), "eval2d's keypoints on the "
+                        "pickles differ from those on the .npz")
+                require(torch.equal(
+                    got, keypoints.decode_upsampled_torch(sm, factor)),
+                    "decode differs from its twin on eval2d's scoremaps")
+        require(all(np.array_equal(a, b) for a, b in zip(p_dists, n_dists)),
+                "eval2d's distances on the pickles differ from the .npz's")
+        line["eval2d_launches"] = counts
+
+        # train_posenet warm-started from the checkpoint: step 0 holds its
+        # PoseNet2D layers, and the trainer's own seeded ones elsewhere
+        job = train_posenet.setup([
+            "--data", rhd, "--max-iter", str(WEIGHTS_TRAIN_STEPS),
+            "--show-loss-freq", "1",
+            "--snapshot-dir", os.path.join(tmp, "snaps"), "--weights", cpm,
+            "--eval-data", rhd, "--eval-batches", "1",
+            "--eval-freq", str(WEIGHTS_TRAIN_STEPS)])
+        step0 = weights.params_to_jax(job.params)
+        require(list(step0) == [posenet.SCOPE], f"scopes {list(step0)}")
+        own = posenet.init(np.random.default_rng(0))
+        for layer, leaves in step0[posenet.SCOPE].items():
+            src = params_np[posenet.SCOPE] if layer in taken[posenet.SCOPE] \
+                else own
+            require(all(np.array_equal(v, src[layer][k])
+                        for k, v in leaves.items()),
+                    f"train_posenet's step-0 {layer} is not the "
+                    f"{'checkpoint' if src is not own else 'seeded'} one")
+        zero_counts()
+        state = _common.run(job)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        require(state.step == WEIGHTS_TRAIN_STEPS, f"step {state.step}")
+        require(counts["decode_upsampled"] > 0, "the warm-started "
+                "train_posenet's eval never launched the decode kernel")
+        add_counts(launches, counts)
+        line["train_launches"] = counts
+    require_exact_f32()
+    line["s"] = time.perf_counter() - t_phase
+    log(json.dumps(line))
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2010,7 +2193,8 @@ def main():
             ("export", lambda: phase_export(dev, params_np)),
             ("bf16", lambda: phase_bf16(dev, params_np, f32_fps)),
             ("eval", lambda: phase_eval(dev, params_np, err)),
-            ("train", lambda: phase_train(dev))):
+            ("train", lambda: phase_train(dev)),
+            ("weights", lambda: phase_weights(dev, params_np))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0

@@ -1,16 +1,24 @@
 """Shared helpers of the port's CLIs (counterpart of hand3d_tpu/cli/_common.py).
 
-Weights are ``.npz`` files with '/'-joined keys, as the JAX package's
-``save_npz`` exports them, or the port's training snapshots
-(``snapshot-<step>.pt``, params only). Scopes and layers that no file names
-keep their seeded random values.
+``--weights`` takes, in any mix: ``.npz`` files with '/'-joined keys (the
+JAX package's ``save_npz`` export), the port's training snapshots
+(``snapshot-<step>.pt``) and the JAX package's (``.msgpack``), both params
+only, TF V2 checkpoints (a prefix, or its ``.index``; the reference's
+training snapshots and the CPM-MPII warm start) and the reference's
+``.pickle`` weights. Scopes and layers that no file names keep their seeded
+random values.
 """
 
 import argparse
+import os
 import re
 from typing import Any, Callable, NamedTuple
 
 from hand3d_tpu_torch.weights import load_npz
+from hand3d_tpu_torch.weights.convert import (
+    CPM_HANDSEGNET_DISCARD, CPM_HANDSEGNET_RENAME, CPM_POSENET_DISCARD,
+    CPM_POSENET_RENAME, SNAPSHOT_DISCARD, apply_discard_rename,
+    convert_reference_pickles, flat_to_tree, load_tf_checkpoint_flat)
 
 _SNAPSHOT_RE = re.compile(r"(^|/)snapshot-\d+\.pt$")
 
@@ -23,37 +31,64 @@ def base_parser(description):
                    help="torch device to run on (default cuda; there the two "
                         "CUDA kernels run). 'cpu' runs their plain twins.")
     p.add_argument("--weights", nargs="+", default=None,
-                   help="Weight files: .npz (the JAX package's export) or "
-                        "the port's snapshot-<step>.pt training snapshots.")
+                   help="Weight files: .npz (the JAX package's export), "
+                        "snapshot-<step>.pt (the port's training snapshots), "
+                        ".msgpack (the JAX package's), a TF checkpoint "
+                        "(prefix or .index; a CPM-MPII one is split into "
+                        "HandSegNet and PoseNet2D) or reference .pickle "
+                        "files (converted on the fly).")
     return p
 
 
-def load_weight_trees(paths):
-    """Merge .npz files and training snapshots into one TF-layout tree."""
+def _load_tf_ckpt_tree(path):
+    """TF V2 checkpoint (prefix or .index path) -> param tree.
+
+    Optimizer slots are dropped (SNAPSHOT_DISCARD, eval2d_gt_cropped.py:62).
+    Variables under CPM-MPII scopes go through the reference's warm-start
+    discard and rename rules (training_handsegnet.py:73-75,
+    training_posenet.py:74-76), so ``--weights cpm-model-mpii`` reads the
+    shipped checkpoint directly.
+    """
+    prefix = path[: -len(".index")] if path.endswith(".index") else path
+    flat = load_tf_checkpoint_flat(prefix, discard_list=SNAPSHOT_DISCARD)
+    if any(n.startswith("CPM/") for n in flat):
+        seg = apply_discard_rename(flat, CPM_HANDSEGNET_DISCARD,
+                                   CPM_HANDSEGNET_RENAME)
+        pose = apply_discard_rename(flat, CPM_POSENET_DISCARD,
+                                    CPM_POSENET_RENAME)
+        flat = {
+            **{k: v for k, v in seg.items() if k.startswith("HandSegNet")},
+            **{k: v for k, v in pose.items() if k.startswith("PoseNet2D")},
+        }
+    return flat_to_tree(flat)
+
+
+def load_weight_trees(paths, exclude_var_list=None):
+    """Merge weight files of every format into one TF-layout tree; a later
+    file overrides an earlier one layer by layer. ``exclude_var_list``
+    drops the reference pickles' names that contain an entry."""
     from hand3d_tpu_torch.train.checkpoints import load_snapshot_params
 
     merged = {}
     for path in paths:
-        if path.endswith(".npz"):
-            tree = load_npz(path)
-        elif _SNAPSHOT_RE.search(path):
+        if _SNAPSHOT_RE.search(path) or path.endswith(".msgpack"):
             tree = load_snapshot_params(path)
+        elif path.endswith(".npz"):
+            tree = load_npz(path)
+        elif path.endswith(".index") or os.path.exists(path + ".index"):
+            tree = _load_tf_ckpt_tree(path)
         else:
-            raise ValueError(
-                f"{path}: only .npz weights and snapshot-<step>.pt training "
-                "snapshots are read by the PyTorch port; reference .pickle "
-                "files, TF checkpoints and .msgpack snapshots wait for "
-                "ROADMAP.md 'Still to port', queue 2")
+            tree = convert_reference_pickles([path], exclude_var_list)
         for scope, sub in tree.items():
             merged.setdefault(scope, {}).update(sub)
     return merged
 
 
-def init_or_load(params, weight_paths):
+def init_or_load(params, weight_paths, exclude_var_list=None):
     """Overlay the layers of ``weight_paths`` on the seeded tree ``params``,
     for the scopes it has."""
     if weight_paths:
-        loaded = load_weight_trees(weight_paths)
+        loaded = load_weight_trees(weight_paths, exclude_var_list)
         for scope in params:
             if scope in loaded:
                 params[scope].update(loaded[scope])
@@ -84,7 +119,7 @@ def add_train_args(p, max_iter, lr, lr_iter, snapshot_dir):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--qat", action="store_true",
                    help="Quantization-aware training: not ported, raises "
-                        "(ROADMAP.md 'Still to port', queue 5).")
+                        "(ROADMAP.md 'Still to port', 'Quantization').")
     add_show_loss_arg(p)
     add_steps_per_call_arg(p)
     p.add_argument("--metrics-log", default=None,
@@ -97,9 +132,14 @@ def add_train_args(p, max_iter, lr, lr_iter, snapshot_dir):
                    default=True,
                    help="Preprocess in the input pipeline (its own draws per "
                         "epoch and step) instead of inside the train step")
+    p.add_argument("--deterministic", action="store_true",
+                   help="Deterministic cuDNN, cuBLAS and torch algorithms: "
+                        "on the card a run stopped and --resume'd then "
+                        "equals the uninterrupted run bit for bit (as on "
+                        "the CPU always)")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="Device mesh: not ported, raises (ROADMAP.md 'Still "
-                        "to port', queue 1).")
+                        "to port', 'What training left out').")
     add_memory_args(p)
     return p
 
@@ -114,7 +154,7 @@ def add_steps_per_call_arg(p):
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="Training steps per device call; only 1 is ported "
                         "(device-resident training waits for ROADMAP.md "
-                        "'Still to port', queue 1).")
+                        "'Still to port', 'What training left out').")
 
 
 def add_memory_args(p):
@@ -132,24 +172,50 @@ def add_memory_args(p):
 
 def reject_unported(args):
     """Raise for the training flags the port does not have yet, naming the
-    ROADMAP.md queue that ports them: nothing is silently ignored."""
+    ROADMAP.md item that ports them by its title: nothing is silently
+    ignored."""
     if args.qat:
         raise NotImplementedError(
             "--qat (quantization-aware training) is not ported: ROADMAP.md "
-            "'Still to port', queue 5")
+            "'Still to port', 'Quantization'")
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh is not ported: the port trains on one device "
-            "(ROADMAP.md 'Still to port', queue 1)")
+            "(ROADMAP.md 'Still to port', 'What training left out')")
     if args.steps_per_call > 1:
         raise NotImplementedError(
             "--steps-per-call > 1 (device-resident multi-step training) is "
-            "not ported: ROADMAP.md 'Still to port', queue 1")
+            "not ported: ROADMAP.md 'Still to port', 'What training left out'")
     if isinstance(args.remat, str):
         raise NotImplementedError(
             f"--remat {args.remat}: named recompute policies are not ported "
-            "(ROADMAP.md 'Still to port', queue 1); --remat alone recomputes "
-            "everything")
+            "(ROADMAP.md 'Still to port', 'What training left out'); "
+            "--remat alone recomputes everything")
+
+
+def train_device(args):
+    """The trainer's torch device, TF32 off (``precision.exact_f32``).
+
+    With --deterministic every cuDNN, cuBLAS and torch algorithm is the
+    deterministic one. cuBLAS reads CUBLAS_WORKSPACE_CONFIG when it starts,
+    so the setting is made before the process's first CUDA work, or the
+    caller must have made it.
+    """
+    import torch
+
+    from hand3d_tpu_torch import precision
+
+    if args.deterministic:
+        if "CUBLAS_WORKSPACE_CONFIG" not in os.environ:
+            if torch.cuda.is_initialized():
+                raise RuntimeError(
+                    "--deterministic after CUDA started: set "
+                    "CUBLAS_WORKSPACE_CONFIG=:4096:8 before the process's "
+                    "first CUDA work")
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+    return precision.exact_f32(args.device)
 
 
 def _metrics_logger(args):

@@ -50,14 +50,15 @@ def main(argv=None):
                    help="<1 = fast localization preset (models.cascade)")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
                    help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "queue 5)")
+                        "'Quantization')")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain twins)")
     args = p.parse_args(argv)
     if args.quantize is not None:
         raise NotImplementedError(
-            "--quantize is not ported: ROADMAP.md 'Still to port', queue 5")
+            "--quantize is not ported: ROADMAP.md 'Still to port', "
+            "'Quantization'")
 
     device = precision.exact_f32(args.device)
     net = ColorHandPose3D(seg_scale=args.seg_scale)

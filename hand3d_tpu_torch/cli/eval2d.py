@@ -28,7 +28,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     dataset = RHDDataset("evaluation", path=args.data)
-    params = init_or_load(random_params(args.seed), args.weights)
+    params = init_or_load(random_params(args.seed), args.weights,
+                          exclude_var_list=["PosePrior", "ViewpointNet"])
     metrics = eval2d_full_image(
         params, dataset, args.batch_size, use_wrist_coord=args.wrist,
         scale_to_size=args.scale_to_size, device=args.device,

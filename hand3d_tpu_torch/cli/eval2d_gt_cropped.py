@@ -25,7 +25,8 @@ def main(argv=None):
     dataset = RHDDataset("evaluation", path=args.data)
     params = init_or_load(
         {posenet.SCOPE: posenet.init(np.random.default_rng(args.seed))},
-        args.weights)
+        args.weights,
+        exclude_var_list=["PosePrior", "ViewpointNet", "HandSegNet"])
     metrics = eval2d_gt_cropped(
         params[posenet.SCOPE], dataset, args.batch_size, device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))

@@ -28,7 +28,7 @@ def main(argv=None):
                    help="fast localization preset (models.cascade)")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
                    help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "queue 5)")
+                        "'Quantization')")
     p.add_argument("--phase-pack", action="store_true",
                    help="out of scope for the port, raises")
     p.add_argument("--device", default="cuda",

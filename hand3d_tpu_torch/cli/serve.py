@@ -156,7 +156,8 @@ def build_estimator(args):
     DynamicBatcher can wrap."""
     if args.quantize is not None:
         raise NotImplementedError(
-            "--quantize is not ported: ROADMAP.md 'Still to port', queue 5")
+            "--quantize is not ported: ROADMAP.md 'Still to port', "
+            "'Quantization'")
     if args.artifact:
         from hand3d_tpu_torch.export import ExportedEstimator
         from hand3d_tpu_torch.serving import SnapEstimator
@@ -189,7 +190,7 @@ def main(argv=None):
                    help="serving bucket; inputs snap to it on the device")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
                    help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "queue 5)")
+                        "'Quantization')")
     p.add_argument("--seg-scale", type=float, default=1.0)
     p.add_argument("--compute-dtype", default=None,
                    choices=[None, "bfloat16"],

@@ -9,10 +9,10 @@ Reference hyperparameters (training_handsegnet.py:29-39): batch 8, Adam, LR
 
 import numpy as np
 
-from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.cli._common import (TrainJob, add_train_args,
                                           base_parser, fit_options,
-                                          init_or_load, reject_unported, run)
+                                          init_or_load, reject_unported, run,
+                                          train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -34,7 +34,7 @@ def setup(argv=None):
                    "snapshots_handsegnet")
     args = p.parse_args(argv)
     reject_unported(args)
-    device = precision.exact_f32(args.device)
+    device = train_device(args)
 
     dataset = RHDDataset("training", path=args.data)
     cfg = PreprocessConfig(hue_aug=True, random_crop_to_size=True)

@@ -17,11 +17,10 @@ warm-start both stages with --weights.
 
 import numpy as np
 
-from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
                                           fit_options, init_or_load,
-                                          reject_unported, run)
+                                          reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -78,7 +77,7 @@ def setup(argv=None):
                      "fine-tunes)")
     args = p.parse_args(argv)
     reject_unported(args)
-    device = precision.exact_f32(args.device)
+    device = train_device(args)
     snapshot_dir = args.snapshot_dir or f"snapshots_joint_{args.variant}"
 
     dataset = RHDDataset("training", path=args.data)

@@ -11,11 +11,10 @@ prediction heads. Optionally warm-starts from --weights.
 
 import numpy as np
 
-from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
                                           fit_options, init_or_load,
-                                          reject_unported, run)
+                                          reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -43,7 +42,7 @@ def setup(argv=None):
                      "training")
     args = p.parse_args(argv)
     reject_unported(args)
-    device = precision.exact_f32(args.device)
+    device = train_device(args)
 
     dataset = RHDDataset("training", path=args.data)
     cfg = PreprocessConfig(use_wrist_coord=False, hand_crop=True,

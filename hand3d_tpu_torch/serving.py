@@ -45,7 +45,7 @@ def prepare_params(params, quantize=None, phase_pack=False,
             is not None or calibrate_fn is not None:
         raise NotImplementedError(
             "int8 quantization (quantize, quantize_scope, calibration) is "
-            "not ported: ROADMAP.md 'Still to port', queue 5")
+            "not ported: ROADMAP.md 'Still to port', 'Quantization'")
     if phase_pack:
         raise NotImplementedError(
             "phase_pack is out of scope for the port: it packs conv1_2's "
@@ -108,7 +108,8 @@ class HandPoseEstimator:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (multi-chip serving) is not ported: the port serves "
-                "on one device (ROADMAP.md 'Still to port', queue 1)")
+                "on one device (ROADMAP.md 'Still to port', 'What "
+                "training left out')")
         params = prepare_params(
             params, quantize, phase_pack, quantize_scope,
             calibration_batches=calibration_images)

@@ -120,7 +120,13 @@ def restore_snapshot(path, template_state):
 def load_snapshot_params(path):
     """The params of a snapshot as a TF-layout numpy tree, Adam state left
     out: the reference's load_weights_from_snapshot (utils/general.py:
-    614-651), so a training snapshot can seed fine-tuning or eval."""
+    614-651), so a training snapshot can seed fine-tuning or eval. Takes the
+    port's ``snapshot-<step>.pt`` and the JAX package's
+    ``snapshot-<step>.msgpack`` (read by weights/flax_msgpack.py)."""
+    if str(path).endswith(".msgpack"):
+        from hand3d_tpu_torch.weights import flax_msgpack
+
+        return flax_msgpack.load_snapshot_params(path)
     return weights.params_to_jax(_load(path)["params"])
 
 

@@ -100,7 +100,7 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
     if steps_per_call > 1:
         raise NotImplementedError(
             "steps_per_call > 1 (device-resident multi-step training) is "
-            "not ported: ROADMAP.md 'Still to port', queue 1")
+            "not ported: ROADMAP.md 'Still to port', 'What training left out'")
     state = init_state(params, optimizer)
     start_step = 0
     if resume and snapshot_dir:

@@ -143,7 +143,8 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
 
     ``remat=True`` recomputes activations in the backward pass instead of
     storing them. The JAX package's named jax.checkpoint policies have no
-    counterpart yet (ROADMAP.md 'Still to port', queue 1) and raise.
+    counterpart yet (ROADMAP.md 'Still to port', 'What training left
+    out') and raise.
 
     ``accum_steps > 1`` splits the batch's leading axis into that many equal
     microbatches, averages their gradients (and losses) and applies ONE
@@ -156,7 +157,7 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
         raise NotImplementedError(
             f"remat policy {remat!r}: only boolean remat is ported; the "
             "named recompute policies wait for ROADMAP.md 'Still to port', "
-            "queue 1")
+            "'What training left out'")
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
 

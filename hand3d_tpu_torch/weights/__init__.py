@@ -4,37 +4,17 @@ A param tree is the JAX package's: {scope: {layer: {"weights", "biases"}}}
 with TF layouts (conv kernels HWIO, dense kernels [in, out]), as
 ``hand3d_tpu.weights.save_npz`` writes it and as ``ColorHandPose3D().init``
 makes it. This module reads and makes such trees with numpy alone, so the
-port runs where jax is not installed.
+port runs where jax is not installed. The other formats' readers are
+``convert`` (reference pickles, the warm-start rules), ``tf_ckpt`` (TF V2
+checkpoints) and ``flax_msgpack`` (the JAX package's training snapshots).
 """
 
 import numpy as np
 import torch
 
 from hand3d_tpu_torch.models import handsegnet, posenet, poseprior
-
-
-def flat_to_tree(flat):
-    """{'A/b/weights': arr} -> {'A': {'b': {'weights': arr}}}."""
-    tree = {}
-    for name, value in flat.items():
-        *parents, leaf = name.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = np.asarray(value)
-    return tree
-
-
-def tree_to_flat(tree, prefix=""):
-    """Inverse of :func:`flat_to_tree`."""
-    flat = {}
-    for key, value in tree.items():
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(value, dict):
-            flat.update(tree_to_flat(value, path))
-        else:
-            flat[path] = np.asarray(value)
-    return flat
+from hand3d_tpu_torch.weights.convert import (  # noqa: F401
+    flat_to_tree, tree_to_flat)
 
 
 def load_npz(path):

@@ -8,6 +8,7 @@ runs with ``--device cpu``.
 """
 
 import importlib
+import pickle
 import sys
 
 import jax
@@ -18,19 +19,21 @@ from hand3d_tpu.models.poseprior import PosePriorNetwork
 from hand3d_tpu.weights import save_npz
 
 from fixtures import make_rhd_bin, make_stb_bin
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    d = tmp_path_factory.mktemp("cli")
-    cascade = str(d / "cascade.npz")
-    save_npz(cascade, JaxCascade().init(jax.random.PRNGKey(7)))
-    lifting = str(d / "local.npz")
-    save_npz(lifting, PosePriorNetwork("local").init(jax.random.PRNGKey(8)))
-    return {"rhd": str(make_rhd_bin(d / "rhd.bin", num_records=3)),
-            "stb": str(make_stb_bin(d / "stb.bin", num_records=3)),
-            "cascade": cascade, "local": lifting,
-            "plot": str(d / "fig9.png")}
+    with module_dir(tmp_path_factory, "cli") as d:
+        cascade = str(d / "cascade.npz")
+        save_npz(cascade, JaxCascade().init(jax.random.PRNGKey(7)))
+        lifting = str(d / "local.npz")
+        save_npz(lifting,
+                 PosePriorNetwork("local").init(jax.random.PRNGKey(8)))
+        yield {"rhd": str(make_rhd_bin(d / "rhd.bin", num_records=3)),
+               "stb": str(make_stb_bin(d / "stb.bin", num_records=3)),
+               "cascade": cascade, "local": lifting,
+               "plot": str(d / "fig9.png")}
 
 
 def run_cli(package, name, argv, monkeypatch, capsys):
@@ -74,8 +77,15 @@ def test_port_cli_prints_the_jax_lines(files, monkeypatch, capsys, case):
 
 
 def test_port_cli_rejects_other_weight_formats(files, tmp_path):
+    """A file in none of the weight formats falls through to the reference
+    pickle reader, which refuses it, as the JAX CLI's does."""
+    from hand3d_tpu.cli._common import load_weight_trees as jax_load
     from hand3d_tpu_torch.cli import eval3d
 
-    with pytest.raises(ValueError, match="only .npz"):
+    junk = tmp_path / "w.bin"
+    junk.write_bytes(b"not a weight file")
+    with pytest.raises(pickle.UnpicklingError):
+        jax_load([str(junk)])
+    with pytest.raises(pickle.UnpicklingError):
         eval3d.main(["--data", files["rhd"], "--device", "cpu",
-                     "--weights", str(tmp_path / "w.pickle")])
+                     "--weights", str(junk)])

@@ -46,6 +46,7 @@ from hand3d_tpu_torch.data.stb import STBDataset
 from hand3d_tpu_torch.eval import harnesses
 
 from fixtures import make_rhd_bin, make_stb_bin
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 FIELD_ATOL = {"image_crop": 2 * 2.0 ** -14 + ATOL,
@@ -55,12 +56,12 @@ TINY = np.finfo(np.float32).tiny
 
 @pytest.fixture(scope="module")
 def bins(tmp_path_factory):
-    d = tmp_path_factory.mktemp("data")
-    left = make_rhd_bin(d / "left.bin", num_records=3, seed=1)
-    right = make_rhd_bin(d / "right.bin", num_records=2, seed=2,
-                         dominant="right")
-    stb = make_stb_bin(d / "stb.bin", num_records=3, seed=3)
-    return {"left": str(left), "right": str(right), "stb": str(stb)}
+    with module_dir(tmp_path_factory, "data") as d:
+        left = make_rhd_bin(d / "left.bin", num_records=3, seed=1)
+        right = make_rhd_bin(d / "right.bin", num_records=2, seed=2,
+                             dominant="right")
+        stb = make_stb_bin(d / "stb.bin", num_records=3, seed=3)
+        yield {"left": str(left), "right": str(right), "stb": str(stb)}
 
 
 def test_record_dtypes_match_jax():

@@ -44,6 +44,7 @@ from hand3d_tpu_torch.eval import harnesses, metrics
 from hand3d_tpu_torch.ops.image import resize_bilinear
 
 from fixtures import make_rhd_bin, make_stb_bin
+from torch_tmp import module_dir
 from test_torch_cascade import _jax_fields, _jax_rerun
 
 BATCH = 2
@@ -56,9 +57,9 @@ COORD3D_ATOL = 1e-6
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    d = tmp_path_factory.mktemp("eval")
-    return {"rhd": str(make_rhd_bin(d / "rhd.bin", num_records=3)),
-            "stb": str(make_stb_bin(d / "stb.bin", num_records=3))}
+    with module_dir(tmp_path_factory, "eval") as d:
+        yield {"rhd": str(make_rhd_bin(d / "rhd.bin", num_records=3)),
+               "stb": str(make_stb_bin(d / "stb.bin", num_records=3))}
 
 
 def np_tree(tree):

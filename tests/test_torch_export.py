@@ -21,6 +21,8 @@ from hand3d_tpu_torch import export, serving, weights
 from hand3d_tpu_torch.cli import export_model
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 
+from torch_tmp import module_dir, tmp_path  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 HW = (48, 64)
 
@@ -33,11 +35,20 @@ def params():
 @pytest.fixture(scope="module")
 def artifact(params, tmp_path_factory):
     """An f32 artifact at batch 2, 48x64, written to a file."""
-    path = tmp_path_factory.mktemp("export") / "cascade.h3dx"
-    blob = export.export_estimator(params, str(path), batch_size=2,
-                                   input_hw=HW, device="cpu")
-    assert path.read_bytes() == blob
-    return str(path)
+    with module_dir(tmp_path_factory, "export") as d:
+        path = d / "cascade.h3dx"
+        blob = export.export_estimator(params, str(path), batch_size=2,
+                                       input_hw=HW, device="cpu")
+        assert path.read_bytes() == blob
+        yield str(path)
+
+
+@pytest.fixture(scope="module")
+def npz(params, tmp_path_factory):
+    """``params`` as an .npz weights file."""
+    with module_dir(tmp_path_factory, "weights") as d:
+        weights.save_npz(str(d / "w.npz"), params)
+        yield d / "w.npz"
 
 
 def frames(n, h, w, seed):
@@ -108,7 +119,7 @@ def test_rejects_a_bad_magic_and_a_jax_artifact(artifact):
 
 
 def test_unported_export_options_raise(params):
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="Quantization"):
         export.export_estimator(params, quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="out of scope"):
         export.export_estimator(params, phase_pack=True, device="cpu")
@@ -126,9 +137,7 @@ def test_snap_estimator_serves_an_artifact(params, artifact):
     np.testing.assert_array_equal(got["snap_hw"], HW)
 
 
-def test_export_cli(params, tmp_path, capsys):
-    npz = tmp_path / "w.npz"
-    weights.save_npz(str(npz), params)
+def test_export_cli(params, npz, tmp_path, capsys):
     out = tmp_path / "c.h3dx"
     export_model.main(["--weights", str(npz), "--out", str(out),
                        "--batch-size", "1", "--input-hw", "48x64",
@@ -140,7 +149,7 @@ def test_export_cli(params, tmp_path, capsys):
                                      left_hand=False, device="cpu")
     images = frames(1, *HW, seed=3)
     assert_equal_outputs(est.predict(images), live.predict(images))
-    for flag, match in ((["--quantize", "int8"], "queue 5"),
+    for flag, match in ((["--quantize", "int8"], "Quantization"),
                         (["--phase-pack"], "out of scope")):
         with pytest.raises(NotImplementedError, match=match):
             export_model.main(["--weights", str(npz), "--out", str(out),

@@ -96,6 +96,73 @@ def test_port_runs_without_jax():
     assert proc.stdout.strip() == "[]"
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
+             "hand3d_tpu")
+
+
+def test_no_port_module_imports_what_the_card_lacks():
+    """No module of the port and no line of chip_smoke.py imports jax,
+    flax, msgpack, ml_dtypes or the JAX package, at any depth."""
+    import ast
+
+    files = sorted((REPO / "hand3d_tpu_torch").rglob("*.py"))
+    assert len(files) > 40
+    for path in files + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_weight_readers_and_gates_run_without_jax(tmp_path):
+    """With jax, flax, msgpack, ml_dtypes and the JAX package blocked: a
+    reference pickle, a TF checkpoint with a bf16 tensor and a msgpack
+    snapshot load, and the gates' tools and writers import."""
+    code = (
+        "import pickle, sys, numpy as np\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        "from hand3d_tpu_torch.cli import _common, convert_weights\n"
+        "from hand3d_tpu_torch.data import synthetic\n"
+        "from hand3d_tpu_torch.tools import (generalization_check,\n"
+        "                                    overfit_check)\n"
+        "from hand3d_tpu_torch.weights import flax_msgpack, tf_ckpt\n"
+        f"d = {str(tmp_path)!r}\n"
+        "w = np.arange(6, dtype=np.float32).reshape(2, 3)\n"
+        "with open(d + '/p.pickle', 'wb') as f:\n"
+        "    pickle.dump({'PoseNet2D/conv1_1/weights:0': w}, f, protocol=2)\n"
+        "bits = np.array([0x3f80, 0xc000], np.uint16)\n"
+        "v = 'CPM/PoseNet/conv1_1_CPM/'\n"
+        "tf_ckpt.write_checkpoint(d + '/ck', {\n"
+        "    v + 'weights': w, v + 'biases': bits,\n"
+        "    'global_step': np.asarray(3, np.int64)}, bfloat16=(v + 'biases',))\n"
+        # {'params': {'PosePrior': {'fc_xyz': {'weights': ndarray}}}} in
+        # flax's msgpack encoding (the ndarray as extension type 1)
+        "arr = (b'\\x93\\x91\\x02\\xa7float32\\xc4\\x08'"
+        " + np.asarray([1.5, -2], np.float32).tobytes())\n"
+        "body = (b'\\x81\\xa6params\\x81\\xa9PosePrior\\x81\\xa6fc_xyz'\n"
+        "        b'\\x81\\xa7weights\\xc7' + bytes([len(arr)]) + b'\\x01' + arr)\n"
+        "open(d + '/snapshot-1.msgpack', 'wb').write(body)\n"
+        "t = _common.load_weight_trees([d + '/p.pickle', d + '/ck',\n"
+        "                               d + '/snapshot-1.msgpack'])\n"
+        "l = t['PoseNet2D']['conv1_1']\n"
+        "assert np.array_equal(l['weights'], w), l\n"
+        "assert l['biases'].tolist() == [1.0, -2.0], l\n"
+        "assert t['PosePrior']['fc_xyz']['weights'].tolist() == [1.5, -2.0]\n"
+        "print(sorted(m for m, v in sys.modules.items()\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r} and v is not None))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def _flood_inputs(b, h, w, rng):
     det = (rng.random((b, h, w)) > 0.55).astype(np.float32)
     det[0] = 0.0  # empty mask

@@ -21,6 +21,8 @@ from hand3d_tpu.weights import save_npz, tree_to_flat
 from hand3d_tpu_torch import weights
 from hand3d_tpu_torch.models import handsegnet, posenet, poseprior
 
+from torch_tmp import tmp_path  # noqa: F401
+
 RTOL_OF_MAX = 1e-5  # allowed |got - want| as a share of max |want|
 
 

@@ -18,6 +18,7 @@ from hand3d_tpu_torch.eval import harnesses
 from hand3d_tpu_torch.serving import HandPoseEstimator
 
 from fixtures import make_rhd_bin
+from torch_tmp import tmp_path  # noqa: F401
 
 
 @pytest.fixture

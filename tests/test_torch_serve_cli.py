@@ -23,6 +23,8 @@ import torch
 from hand3d_tpu_torch import export, serving, weights
 from hand3d_tpu_torch.cli import serve
 
+from torch_tmp import module_dir, tmp_path  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 HW = (48, 64)
 
@@ -30,6 +32,14 @@ HW = (48, 64)
 @pytest.fixture(scope="module")
 def params():
     return weights.random_params(2)
+
+
+@pytest.fixture(scope="module")
+def npz(params, tmp_path_factory):
+    """``params`` as an .npz weights file."""
+    with module_dir(tmp_path_factory, "weights") as d:
+        weights.save_npz(str(d / "w.npz"), params)
+        yield d / "w.npz"
 
 
 def frames(n, h, w, seed):
@@ -182,9 +192,8 @@ def test_http_dynamic_batch_coalesces(params):
                                    want[i:i + 1], rtol=1e-6)
 
 
-def test_build_estimator_from_weights_and_from_an_artifact(params, tmp_path):
-    npz = tmp_path / "w.npz"
-    weights.save_npz(str(npz), params)
+def test_build_estimator_from_weights_and_from_an_artifact(params, npz,
+                                                           tmp_path):
     art = tmp_path / "c.h3dx"
     export.export_estimator(params, str(art), batch_size=1, input_hw=HW,
                             device="cpu")
@@ -203,7 +212,7 @@ def test_build_estimator_from_weights_and_from_an_artifact(params, tmp_path):
     out = est.predict(images)
     np.testing.assert_array_equal(out["snap_hw"], HW)
     assert out["keypoint_uv21"].shape == live["keypoint_uv21"].shape
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="Quantization"):
         serve.build_estimator(serve_args(
             ["--weights", str(npz), "--quantize", "int8", *base]))
 
@@ -226,11 +235,9 @@ def serve_args(argv):
     return captured["args"]
 
 
-def test_serve_main_answers_then_stops_on_sigterm(params, tmp_path):
+def test_serve_main_answers_then_stops_on_sigterm(npz):
     """The CLI in its own process: --dynamic-batch, a POST, then SIGTERM
     finishes cleanly with exit code 0."""
-    npz = tmp_path / "w.npz"
-    weights.save_npz(str(npz), params)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "hand3d_tpu_torch.cli.serve", "--weights",
@@ -264,10 +271,10 @@ def test_serve_main_answers_then_stops_on_sigterm(params, tmp_path):
     ("export_model", ["--weights", "w.npz", "--out", "c.h3dx"]),
     ("demo", ["hand.png"])])
 def test_serving_clis_default_to_cuda_and_refuse_a_missing_card(
-        params, tmp_path, monkeypatch, cli, argv):
+        npz, tmp_path, monkeypatch, cli, argv):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    weights.save_npz("w.npz", params)
+    os.symlink(npz, "w.npz")
     module = importlib.import_module(f"hand3d_tpu_torch.cli.{cli}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(argv)
@@ -308,7 +315,7 @@ def test_demo_writes_the_pose_figure(tmp_path, capsys):
     out = tmp_path / "hand_pose.png"
     assert out.exists() and out.stat().st_size > 10_000
     assert f"Wrote {out}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 5"):
+    with pytest.raises(NotImplementedError, match="Quantization"):
         demo.main([str(src), "--quantize", "int8", "--device", "cpu"])
 
 

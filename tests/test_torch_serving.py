@@ -203,11 +203,11 @@ def test_seg_scale_estimator_matches_jax(jax_params, np_params):
 
 
 @pytest.mark.parametrize("kwargs, queue", [
-    ({"quantize": "int8"}, "queue 5"),
-    ({"quantize_scope": {"handsegnet"}}, "queue 5"),
-    ({"calibration_images": np.zeros((1, 8, 8, 3))}, "queue 5"),
+    ({"quantize": "int8"}, "Quantization"),
+    ({"quantize_scope": {"handsegnet"}}, "Quantization"),
+    ({"calibration_images": np.zeros((1, 8, 8, 3))}, "Quantization"),
     ({"phase_pack": True}, "out of scope"),
-    ({"mesh": object()}, "queue 1")])
+    ({"mesh": object()}, "What training left out")])
 def test_unported_options_raise(np_params, kwargs, queue):
     with pytest.raises(NotImplementedError, match=queue):
         serving.HandPoseEstimator(np_params, batch_size=1, device="cpu",

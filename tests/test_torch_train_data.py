@@ -31,6 +31,7 @@ from hand3d_tpu_torch.data.stb import STBDataset
 
 from test_torch_data import _compare, _rhd_raw, bins  # noqa: F401
 from torch_threads import torch_threads_per_worker  # noqa: F401
+from torch_tmp import module_dir
 
 KEY = jax.random.PRNGKey(11)
 
@@ -155,8 +156,8 @@ def test_epoch_indices_equal_jax(n, batch, shuffle, seed, drop, shard):
 def train_bin(tmp_path_factory):
     from fixtures import make_rhd_bin
 
-    return str(make_rhd_bin(tmp_path_factory.mktemp("train") / "t.bin",
-                            num_records=9, seed=4))
+    with module_dir(tmp_path_factory, "train") as d:
+        yield str(make_rhd_bin(d / "t.bin", num_records=9, seed=4))
 
 
 def _raw_stream(pipe, n, **kw):

@@ -31,6 +31,7 @@ from hand3d_tpu_torch.train.loop import fit
 
 from fixtures import make_rhd_bin
 from torch_threads import torch_threads_per_worker  # noqa: F401
+from torch_tmp import module_dir, tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = PreprocessConfig(use_wrist_coord=False, hand_crop=True,
@@ -47,8 +48,8 @@ def quiet(*args):
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     # 8 records at batch 2: 4 steps an epoch, so step 3 is mid-epoch
-    return str(make_rhd_bin(tmp_path_factory.mktemp("loop") / "t.bin",
-                            num_records=8, seed=9))
+    with module_dir(tmp_path_factory, "loop") as d:
+        yield str(make_rhd_bin(d / "t.bin", num_records=8, seed=9))
 
 
 def _run(data, max_iter, snapshot_dir, loss=FUSED, **kw):
@@ -83,7 +84,8 @@ def assert_states_equal(a, b):
 @pytest.fixture(scope="module")
 def straight(data, tmp_path_factory):
     """Six uninterrupted steps."""
-    return _run(data, 6, str(tmp_path_factory.mktemp("straight")))
+    with module_dir(tmp_path_factory, "straight") as d:
+        yield _run(data, 6, str(d))
 
 
 def test_resume_equals_the_uninterrupted_run_bitwise(data, straight,

@@ -57,6 +57,7 @@ from hand3d_tpu_torch.train import trainer
 from fixtures import make_rhd_bin
 from test_torch_train_data import jax_noise
 from torch_threads import torch_threads_per_worker  # noqa: F401
+from torch_tmp import module_dir
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL_OF_MAX = 1e-5
@@ -109,10 +110,10 @@ STAGES = ["posenet", "handsegnet", "joint"] + [f"lifting:{v}"
 
 @pytest.fixture(scope="module")
 def raw(tmp_path_factory):
-    path = str(make_rhd_bin(tmp_path_factory.mktemp("step") / "t.bin",
-                            num_records=2, seed=6))
-    return (RHDDataset("training", path).raw_batch(np.arange(2)),
-            JaxRHD("training", path).raw_batch(np.arange(2)))
+    with module_dir(tmp_path_factory, "step") as d:
+        path = str(make_rhd_bin(d / "t.bin", num_records=2, seed=6))
+        yield (RHDDataset("training", path).raw_batch(np.arange(2)),
+               JaxRHD("training", path).raw_batch(np.arange(2)))
 
 
 @pytest.fixture(scope="module")
