@@ -83,7 +83,27 @@ line is printed:
    CUBLAS_WORKSPACE_CONFIG set (the other phases run without it); a
    torch.profiler window of 3 PoseNet steps gives the conv and idle shares.
    TF32 must stay off;
-11. weights: the slice's tree written in the reference's formats,
+11. train_resident: train_posenet's device-resident path on phase 10's file
+   (re-made from its seed): 20 steps at --steps-per-call 7 (windows 7, 7, 6
+   of replays of one captured CUDA graph; in-training evals at the window
+   boundaries 14 and 20), 20 replays, step 0's loss equal to phase 10's
+   per-step run bit for bit, the final params held to its within
+   RESIDENT_SPREAD times a second per-step run's distance from it (at
+   least RESIDENT_PARAM_REL_L2); 8 steps at --steps-per-call 4 across the
+   LR boundary at 5, the LR the device took at each step equal to the
+   schedule, the params held to the per-step run of the same flags; 3 + --resume 3 == 6 straight steps
+   at --steps-per-call 2, bit for bit, in the deterministic child process;
+   ms a step by window (CUDA events) beside phase 10's median; a
+   torch.profiler window of one resident window (idle share, host waits)
+   beside phase 10's; --remat none / True / dots_saveable /
+   dots_with_no_batch_dims_saveable: peak memory and ms a step over 3
+   steps, step 0's gradients within REMAT_GRAD_RTOL_OF_MAX of no remat's,
+   and the same four on the resident path (ms a step over a window, peak
+   memory with the capture);
+   the file through the C++ streamer (InputPipeline(use_native=True)), each
+   batch equal to the memmap's records at the streamer's indices, and the
+   records/s of the native and the threaded pipeline;
+12. weights: the slice's tree written in the reference's formats,
    handsegnet-rhd.pickle and posenet3d-rhd-stb.pickle (names with ':0') and
    a CPM-MPII-shaped TF checkpoint (Adam slots, beta powers, global_step),
    each loaded through cli._common.load_weight_trees: every array equal to
@@ -122,7 +142,10 @@ import torch.nn.functional as F
 from hand3d_tpu_torch import parity, precision, weights
 from hand3d_tpu_torch.cli import (_common, eval2d, train_handsegnet,
                                   train_joint, train_lifting, train_posenet)
-from hand3d_tpu_torch.data import augment, codec
+from hand3d_tpu_torch.data import augment, codec, native
+from hand3d_tpu_torch.data.config import PreprocessConfig
+from hand3d_tpu_torch.data.pipeline import (InputPipeline, epoch_indices,
+                                            resident_data)
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd, preprocess_stb
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
@@ -232,6 +255,31 @@ ADAM_UPDATE_ATOL = 1e-5
 F32_SUBNORMAL = 2.0 ** -149
 
 RESUME_CHILD = "--train-resume-child"  # phase_train_resume's own process
+
+# train_resident: train_posenet's device-resident path on phase 10's file
+RESIDENT_K = 7  # 20 steps: windows 7 + 7 + 6
+RESIDENT_LR = ("--lr", "1e-4", "1e-5", "--lr-iter", "5")
+RESIDENT_LR_K, RESIDENT_LR_STEPS = 4, 8  # the boundary inside window 4..8
+# resident vs phase 10's per-step params after the same steps, per tensor:
+# |p_res - p_step| over |p_step - p_0| (L2). The two take the same batches,
+# draws and kernels, but cuDNN's backward sums with atomics in no fixed
+# order, and a last-bit change grows through leaky-ReLU / max-pool kinks
+# (TRAIN_FLIP_RTOL_OF_MAX) from step to step: 0.106 after 20 steps, 0.0098
+# after 8 (NVIDIA H100 80GB HBM3, 700 W), where a second per-step run of the
+# same seed lay 0.077 away. So the bound is the card's own run-to-run spread:
+# RESIDENT_SPREAD times the distance of a second per-step run of the same
+# seed from phase 10's, and at least RESIDENT_PARAM_REL_L2
+RESIDENT_PARAM_REL_L2 = 5e-2
+RESIDENT_SPREAD = 3.0
+REMAT_SETTINGS = (False, True, "dots_saveable",
+                  "dots_with_no_batch_dims_saveable")
+REMAT_STEPS = 3
+# step 0's gradients under remat vs without: the recompute runs the
+# forward's kernels on the same inputs (the same kink choices); only the
+# backward's sums move, by rounding
+REMAT_GRAD_RTOL_OF_MAX = 1e-4
+NATIVE_EPOCHS = 4
+PER_STEP_POSENET = {}  # phase 10's train_posenet run, for train_resident
 
 # weights: the reference's pickles and a CPM-MPII-shaped TF checkpoint of the
 # slice's tree through --weights; eval2d and train_posenet on a small file
@@ -1833,14 +1881,27 @@ def profile_posenet_step(module, argv, steps=3):
     for i in range(2):
         state, _ = step(state, raw, (0, i))
     torch.cuda.synchronize()
+
+    def window():
+        nonlocal state
+        for i in range(steps):
+            state, _ = step(state, raw, (0, 2 + i))
+
+    return profiled(window, steps)
+
+
+def profiled(window, steps, require_busy=True):
+    """Run ``window()`` (``steps`` train steps) under torch.profiler with
+    CUDA events around it: the shares of the window in conv forward and
+    backward kernels and idle, the longest device and host ops, and the
+    host's waits on the device, each per step."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for i in range(steps):
-            state, _ = step(state, raw, (0, 2 + i))
+        window()
         end.record()
         torch.cuda.synchronize()
     window_us = start.elapsed_time(end) * 1e3
@@ -1858,8 +1919,9 @@ def profile_posenet_step(module, argv, steps=3):
     host = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
     waits = {e.key: e.count for e in averages if e.key in (
         "aten::_local_scalar_dense", "cudaStreamSynchronize",
-        "cudaDeviceSynchronize", "cudaMemcpyAsync")}
-    require(busy > 0, "the profiler saw no device time")
+        "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaEventSynchronize",
+        "cudaGraphLaunch")}
+    require(busy > 0 or not require_busy, "the profiler saw no device time")
     return {"steps": steps, "window_ms": window_us / 1e3,
             "busy_share": busy / window_us,
             "idle_share": 1.0 - busy / window_us,
@@ -1921,6 +1983,11 @@ def phase_train(dev):
             require(len(ms) == TRAIN_STEPS, f"{stage}: {len(ms)} steps timed")
             rows = [json.loads(line) for line in open(log_path)]
             losses = [r["loss"] for r in rows if "loss" in r]
+            if stage == "posenet":
+                PER_STEP_POSENET.update(
+                    params=[p.detach().clone()
+                            for p in trainer.tree_leaves(state.params)],
+                    loss0=losses[0], ms_median=float(np.median(ms[3:])))
             require(len(losses) == 2 and all(np.isfinite(losses)),
                     f"{stage}: losses {losses}")
             if stage == "posenet":
@@ -1959,6 +2026,7 @@ def phase_train(dev):
             if stage == "posenet":
                 line["eval_decodes_checked"] = len(decodes)
                 line["profile"] = profile_posenet_step(module, argv)
+                PER_STEP_POSENET["profile"] = line["profile"]
             log(json.dumps(line))
             require_first_step(stage, vs_cpu)
             require(max(adam["err_over_bound"].values()) <= 1.0,
@@ -1971,40 +2039,331 @@ def phase_train(dev):
     return launches
 
 
-def phase_train_resume(tmp, data):
+def phase_train_resume(tmp, data, *extra):
     """train_posenet: 3 steps + --resume 3 steps equals 6 straight steps bit
-    for bit, under deterministic algorithms. It runs in a child process:
-    deterministic cuBLAS needs CUBLAS_WORKSPACE_CONFIG before cuBLAS starts,
-    and the other phases keep cuBLAS's default workspace."""
+    for bit, under deterministic algorithms, with the trainer flags
+    ``extra``. It runs in a child process: deterministic cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG before cuBLAS starts, and the other phases keep
+    cuBLAS's default workspace."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), RESUME_CHILD, tmp, data],
-        env=env, capture_output=True, text=True, timeout=600)
+        [sys.executable, os.path.abspath(__file__), RESUME_CHILD, tmp, data,
+         *extra], env=env, capture_output=True, text=True, timeout=600)
     sys.stdout.write(child.stdout)
     sys.stderr.write(child.stderr)
     require(child.returncode == 0,
             f"the resume check's child process exited {child.returncode}")
 
 
-def train_resume_child(tmp, data):
+def train_resume_child(tmp, data, *extra):
     require(torch.cuda.is_available(), "no CUDA device")
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     runs = {}
     for label, argv in (
-            ("straight", train_argv("posenet", data, tmp, 6)[1]),
+            ("straight", train_argv("posenet", data, tmp, 6, *extra)[1]),
             ("first", train_argv("posenet", data, os.path.join(tmp, "r"),
-                                 3)[1]),
+                                 3, *extra)[1]),
             ("resumed", train_argv("posenet", data, os.path.join(tmp, "r"),
-                                   6, "--resume")[1])):
+                                   6, "--resume", *extra)[1])):
         runs[label] = train_posenet.main(argv)
     require(runs["first"].step == 3, "the first run did not stop at 3")
     require(states_equal(runs["straight"], runs["resumed"]),
-            "train_posenet: 3 + --resume 3 steps differ from 6 straight steps")
+            f"train_posenet {' '.join(extra)}: 3 + --resume 3 steps differ "
+            "from 6 straight steps")
     require_exact_f32()
-    log("train_posenet: 3 steps + --resume 3 == 6 straight steps, bit for bit "
-        "(params and Adam state; deterministic cuDNN, cuBLAS and torch "
-        "algorithms, in a child process)")
+    log(f"train_posenet {' '.join(extra)}: 3 steps + --resume 3 == 6 "
+        "straight steps, bit for bit (params and Adam state; deterministic "
+        "cuDNN, cuBLAS and torch algorithms, in a child process)")
+
+
+@contextlib.contextmanager
+def timed_windows():
+    """CUDA events around every window that ``train.loop.fit``'s resident
+    step runs (start, end, steps), and the steps it made (their replays)."""
+    windows, steps = [], []
+    base = loop.make_resident_train_step
+
+    def make(*args, **kw):
+        step = base(*args, **kw)
+        steps.append(step)
+
+        def timed(state, data, idx, *rest):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, data, idx, *rest)
+            end.record()
+            windows.append((start, end, len(idx)))
+            return out
+        return timed
+
+    loop.make_resident_train_step = make
+    try:
+        yield windows, steps
+    finally:
+        loop.make_resident_train_step = base
+
+
+def param_rel_l2(params, want, init):
+    """max over tensors of |params - want| / |want - init| (L2)."""
+    worst = 0.0
+    for p, w, p0 in zip(params, want, init):
+        w, p0 = w.double(), p0.double()
+        moved = (w - p0).norm().item()
+        require(moved > 0, "a tensor did not move in training")
+        worst = max(worst, (p.double() - w).norm().item() / moved)
+    return worst
+
+
+def resident_run(module, argv, log_path):
+    """``module.main`` with ``argv``: its final state, the metrics log's
+    rows, the windows, the replays of each resident step it made (the steps
+    themselves, and their graphs, are let go), its launches."""
+    floodfill.launches = 0
+    decode.launches = 0
+    with timed_windows() as (windows, steps):
+        state = module.main(argv + ["--metrics-log", log_path])
+    torch.cuda.synchronize()
+    rows = [json.loads(line) for line in open(log_path)]
+    counts = {"flood_fill": floodfill.launches,
+              "decode_upsampled": decode.launches}
+    return state, rows, windows, [s.replays for s in steps], counts
+
+
+def warm_resident(module, argv, dev, remat=False):
+    """A resident PoseNet step over the job's file, RESIDENT_K steps a
+    window, captured and run for two windows: (step, state, data, idx)."""
+    job = module.setup(argv)
+    state = trainer.init_state(job.params, job.optimizer)
+    step = trainer.make_resident_train_step(job.loss, job.optimizer,
+                                            remat=remat)
+    data = resident_data(job.pipeline.dataset, dev)
+    rows = epoch_indices(len(job.pipeline.dataset), TRAIN_BATCH, True,
+                         job.pipeline.seed)
+    idx = np.stack([rows[i % len(rows)] for i in range(RESIDENT_K)])
+    for w in range(2):
+        state, metrics = step(state, data, idx, 0, w * RESIDENT_K)
+    metrics.cpu()
+    return step, state, data, idx
+
+
+def profile_resident_window(module, argv, dev):
+    """torch.profiler over one resident window of RESIDENT_K PoseNet steps,
+    after the capture and one more window."""
+    step, state, data, idx = warm_resident(module, argv, dev)
+    out = profiled(lambda: step(state, data, idx, 0, 2 * RESIDENT_K)[1]
+                   .cpu(), RESIDENT_K, require_busy=False)
+    out["replays"] = step.replays
+    return out
+
+
+def resident_remat_runs(module, argv, dev):
+    """The resident step under each of REMAT_SETTINGS: ms a step over a
+    third window (CUDA events, the loss read included) and the peak memory
+    from the step's build on (its capture included)."""
+    out = {}
+    for remat in REMAT_SETTINGS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step, state, data, idx = warm_resident(module, argv, dev, remat)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, data, idx, 0, 2 * RESIDENT_K)[1].cpu()
+        end.record()
+        torch.cuda.synchronize()
+        out[str(remat)] = {
+            "ms_per_step": start.elapsed_time(end) / RESIDENT_K,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "replays": step.replays}
+        require(step.replays == 3 * RESIDENT_K,
+                f"--remat {remat}: {step.replays} replays")
+        del step, state, data
+    return out
+
+
+def remat_runs(module, argv, dev):
+    """PoseNet at batch 8 under each of REMAT_SETTINGS: peak memory and ms a
+    step over REMAT_STEPS per-step steps, and step 0's gradients held to
+    no remat's."""
+    job = module.setup(argv)
+    raw = first_batch(job)
+    seed = job.options["seed"]
+    out, plain = {}, None
+    for remat in REMAT_SETTINGS:
+        state = trainer.init_state(job.params, job.optimizer)
+        _, grads = trainer.value_and_grad(
+            job.loss, state.params, raw,
+            augment.generator(trainer.STEP_STREAM, seed, 0), remat)
+        grads = [g.cpu() for g in grads]
+        if plain is None:
+            plain = grads
+        err = max(((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(grads, plain))
+        del grads
+        step = trainer.make_train_step(job.loss, job.optimizer, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events = []
+        for i in range(REMAT_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, raw, (seed, i))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in events]
+        out[str(remat)] = {"peak_mem_bytes": torch.cuda.max_memory_allocated(
+            dev), "ms_per_step": ms, "ms_median": float(np.median(ms)),
+            "grad0_err_of_max": err}
+        require(err <= REMAT_GRAD_RTOL_OF_MAX,
+                f"--remat {remat}: step 0's gradients {err:.3g} of the max "
+                "from no remat's")
+    return out
+
+
+def native_reads(data, dev):
+    """The 64-record file through the C++ streamer: its batches equal the
+    memmap's records at the indices it returns, and
+    ``InputPipeline(use_native=True)`` yields those batches; records/s of
+    the native and the threaded pipeline (raw batches on the card)."""
+    ds = RHDDataset("training", data)
+    golden = np.memmap(data, dtype=codec.RHD_RECORD_DTYPE, mode="r")
+    reader = native.NativeRecordReader(data, codec.RHD_RECORD_DTYPE,
+                                       TRAIN_BATCH, seed=0)
+    reader.reset(1)
+    pipe = InputPipeline(ds, PreprocessConfig(), TRAIN_BATCH, seed=0,
+                         yield_raw=True, use_native=True, device=dev)
+    batches = 0
+    for raw in pipe.iterate(epochs=1):
+        recs, idx = reader.next_batch()
+        require(recs.tobytes() == golden[idx].tobytes(),
+                "the streamer's records differ from the memmap's")
+        for k, v in raw.items():
+            require(np.array_equal(v.cpu().numpy(), recs[k]),
+                    f"the native pipeline's {k} differs from the streamer's")
+        batches += 1
+    require(reader.next_batch() is None and batches == len(ds) // TRAIN_BATCH,
+            f"the native pipeline gave {batches} batches")
+    reader.close()
+    rates = {}
+    for use_native in (True, False):
+        pipe = InputPipeline(ds, PreprocessConfig(), TRAIN_BATCH, seed=0,
+                             yield_raw=True, use_native=use_native,
+                             device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(raw["image"].shape[0]
+                for raw in pipe.iterate(epochs=NATIVE_EPOCHS))
+        torch.cuda.synchronize()
+        rates["native" if use_native else "threaded"] = n / (
+            time.perf_counter() - t0)
+    return {"batches_checked": batches, "records_per_s": rates}
+
+
+def phase_train_resident(dev):
+    """train_posenet's device-resident path (--steps-per-call) at full
+    width on phase 10's file, held to phase 10's per-step run; the LR
+    boundary inside a window; exact resume; the profile of a window; the
+    remat policies; the C++ streamer. Returns the kernel launches (the
+    in-training evals' decodes)."""
+    require(PER_STEP_POSENET, "phase 10's per-step PoseNet run is missing")
+    rng = np.random.default_rng(4)  # phase 10's two files, byte for byte
+    module = train_posenet
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train.bin")
+        eval_data = os.path.join(tmp, "eval.bin")
+        write_rhd_file(data, TRAIN_RECORDS, rng)
+        write_rhd_file(eval_data, TRAIN_RECORDS, rng)
+        _, argv = train_argv("posenet", data, tmp, TRAIN_STEPS)
+        init = [p.detach().clone()
+                for p in trainer.tree_leaves(module.setup(argv).params)]
+
+        # 20 steps in windows of 7, evals at 10 and 20 as in phase 10
+        state, rows, windows, replays, counts = resident_run(
+            module, argv + ["--steps-per-call", str(RESIDENT_K),
+                            "--eval-data", eval_data,
+                            "--eval-freq", str(TRAIN_STEPS // 2),
+                            "--eval-batches", "2"],
+            os.path.join(tmp, "resident.jsonl"))
+        require_exact_f32()
+        require(state.step == TRAIN_STEPS, f"resident: step {state.step}")
+        require(replays == [TRAIN_STEPS],
+                f"resident: {replays} replays, {TRAIN_STEPS} steps")
+        require([k for *_, k in windows] == [7, 7, 6],
+                f"windows {[k for *_, k in windows]}")
+        losses = [r for r in rows if "loss" in r]
+        require(losses[0]["step"] == 0
+                and losses[0]["loss"] == PER_STEP_POSENET["loss0"],
+                f"step 0's loss {losses[0]} differs from the per-step "
+                f"run's {PER_STEP_POSENET['loss0']}")
+        evals = [r["step"] for r in rows if "eval_epe_mean_px" in r]
+        require(evals == [14, TRAIN_STEPS], f"resident evals at {evals}")
+        require(counts["decode_upsampled"] > 0,
+                "the resident run's evals never launched the decode kernel")
+        params_err = param_rel_l2(trainer.tree_leaves(state.params),
+                                  PER_STEP_POSENET["params"], init)
+        window_ms = [a.elapsed_time(b) / k for a, b, k in windows]
+        # the spread: a second per-step run of phase 10's flags
+        again = resident_run(module, argv, os.path.join(tmp, "again.jsonl"))
+        spread = param_rel_l2(trainer.tree_leaves(again[0].params),
+                              PER_STEP_POSENET["params"], init)
+        params_bound = max(RESIDENT_PARAM_REL_L2, RESIDENT_SPREAD * spread)
+        del again
+
+        # the LR boundary at 5 inside the window 4..8, held to the per-step
+        # run of the same flags
+        lr_runs = {}
+        for k in (RESIDENT_LR_K, 1):
+            lr_runs[k] = resident_run(
+                module, train_argv("posenet", data, os.path.join(tmp, str(k)),
+                                   RESIDENT_LR_STEPS, *RESIDENT_LR,
+                                   "--steps-per-call", str(k),
+                                   "--show-loss-freq", "1")[1],
+                os.path.join(tmp, f"lr{k}.jsonl"))
+        lrs = [r["lr"] for r in lr_runs[RESIDENT_LR_K][1] if "loss" in r]
+        want = [1e-4] * 5 + [1e-5] * (RESIDENT_LR_STEPS - 5)
+        require(lrs == want, f"the device's LRs {lrs}, the schedule {want}")
+        lr_err = param_rel_l2(
+            trainer.tree_leaves(lr_runs[RESIDENT_LR_K][0].params),
+            trainer.tree_leaves(lr_runs[1][0].params), init)
+
+        phase_train_resume(tmp, data, "--steps-per-call", "2")
+        profile = profile_resident_window(module, argv, dev)
+        remat = remat_runs(module, argv, dev)
+        remat_resident = resident_remat_runs(module, argv, dev)
+        reads = native_reads(data, dev)
+    per_step = PER_STEP_POSENET["profile"]
+    line = {"train_resident": "posenet", "batch": TRAIN_BATCH,
+            "steps": TRAIN_STEPS, "steps_per_call": RESIDENT_K,
+            "replays": replays[0],
+            "windows": [k for *_, k in windows],
+            "ms_per_step_by_window": window_ms,
+            "ms_per_step": float(np.mean(window_ms[1:])),
+            "per_step_ms_median": PER_STEP_POSENET["ms_median"],
+            "loss0": losses[0]["loss"],
+            "loss0_per_step": PER_STEP_POSENET["loss0"],
+            "params_rel_l2_vs_per_step": params_err,
+            "per_step_rerun_rel_l2": spread, "params_bound": params_bound,
+            "evals_at": evals,
+            "launches": counts,
+            "lr_window": {"steps_per_call": RESIDENT_LR_K, "lr": lrs,
+                          "params_rel_l2_vs_per_step": lr_err},
+            "profile": profile,
+            "per_step_profile": {k: per_step[k] for k in (
+                "window_ms", "idle_share", "host_waits")},
+            "remat": remat, "remat_resident": remat_resident,
+            "native": reads}
+    log(json.dumps(line))
+    require(params_err <= params_bound and lr_err <= params_bound,
+            f"resident params {params_err:.3g} / {lr_err:.3g} from the "
+            f"per-step run's (bound {params_bound:.3g}; a second per-step "
+            f"run: {spread:.3g})")
+    require_exact_f32()
+    return counts
 
 
 def write_reference_pickles(tmp, params_np):
@@ -2194,6 +2553,7 @@ def main():
             ("bf16", lambda: phase_bf16(dev, params_np, f32_fps)),
             ("eval", lambda: phase_eval(dev, params_np, err)),
             ("train", lambda: phase_train(dev)),
+            ("train_resident", lambda: phase_train_resident(dev)),
             ("weights", lambda: phase_weights(dev, params_np))):
         t0 = time.perf_counter()
         launches.append(phase())
@@ -2213,6 +2573,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == [RESUME_CHILD]:
-        train_resume_child(*sys.argv[2:4])
+        train_resume_child(*sys.argv[2:])
     else:
         main()

@@ -152,17 +152,22 @@ def add_show_loss_arg(p):
 
 def add_steps_per_call_arg(p):
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="Training steps per device call; only 1 is ported "
-                        "(device-resident training waits for ROADMAP.md "
-                        "'Still to port', 'What training left out').")
+                   help="Run this many training steps per device call "
+                        "(replays of one CUDA graph over a device-resident "
+                        "dataset). Amortizes per-step dispatch latency when "
+                        "the dataset fits device memory (fine-tuning, small "
+                        "sets); trajectory-identical to --steps-per-call 1. "
+                        "Requires the fused preprocess path and no --mesh.")
 
 
 def add_memory_args(p):
     """Activation-memory levers shared by the training CLIs."""
     p.add_argument("--remat", nargs="?", const=True, default=False,
-                   help="Recompute activations in the backward pass instead "
-                        "of storing them (torch.utils.checkpoint). Named "
-                        "recompute policies are not ported and raise.")
+                   help="Checkpoint the loss: recompute activations in the "
+                        "backward pass instead of storing them. Takes an "
+                        "optional jax.checkpoint_policies name (e.g. "
+                        "--remat dots_saveable keeps conv/matmul outputs "
+                        "and only recomputes elementwise work)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="Gradient accumulation: split the batch into this "
                         "many microbatches, average their grads, apply one "
@@ -173,7 +178,9 @@ def add_memory_args(p):
 def reject_unported(args):
     """Raise for the training flags the port does not have yet, naming the
     ROADMAP.md item that ports them by its title: nothing is silently
-    ignored."""
+    ignored. A --remat name that is no policy raises here too."""
+    from hand3d_tpu_torch.train.trainer import remat_saves
+
     if args.qat:
         raise NotImplementedError(
             "--qat (quantization-aware training) is not ported: ROADMAP.md "
@@ -182,15 +189,7 @@ def reject_unported(args):
         raise NotImplementedError(
             "--mesh is not ported: the port trains on one device "
             "(ROADMAP.md 'Still to port', 'What training left out')")
-    if args.steps_per_call > 1:
-        raise NotImplementedError(
-            "--steps-per-call > 1 (device-resident multi-step training) is "
-            "not ported: ROADMAP.md 'Still to port', 'What training left out'")
-    if isinstance(args.remat, str):
-        raise NotImplementedError(
-            f"--remat {args.remat}: named recompute policies are not ported "
-            "(ROADMAP.md 'Still to port', 'What training left out'); "
-            "--remat alone recomputes everything")
+    remat_saves(args.remat)
 
 
 def train_device(args):
@@ -277,6 +276,7 @@ def fit_options(args, snapshot_dir, eval_fn=None):
                 snapshot_dir=snapshot_dir, snapshot_freq=args.snapshot_freq,
                 resume=args.resume, step_timeout=args.step_timeout,
                 remat=args.remat, accum_steps=args.accum_steps,
+                steps_per_call=args.steps_per_call,
                 metrics_logger=_metrics_logger(args), eval_fn=eval_fn,
                 eval_freq=getattr(args, "eval_freq", 0))
 

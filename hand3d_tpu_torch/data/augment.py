@@ -13,7 +13,15 @@ augmentation is split in two:
 
 jax.random's threefry bits cannot be reproduced in torch, so the tests feed
 JAX's own draws to the applies.
+
+Every draw goes through one of four primitives marked :func:`drawn`
+(``truncated_normal``, ``uniform``, ``randint``, ``keep``). Given a draw
+source of ``train/draws.py`` in place of the generator, a primitive hands the
+call to the source: the device-resident train step takes its draws, made
+ahead on the host from the same generators, out of a device buffer.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -32,6 +40,25 @@ def generator(*words):
 # --- draws ---------------------------------------------------------------------
 
 
+def drawn(fn):
+    """Mark ``fn(generator, *args) -> CPU tensor`` as a draw primitive.
+
+    Called with a ``torch.Generator`` it draws. Called with a draw source
+    (``train/draws.py``) in the generator's place, it returns
+    ``source.draw(fn, args)``: a recording source draws and notes the call,
+    a planned source returns the value made ahead for it.
+    """
+
+    @functools.wraps(fn)
+    def draw(generator, *args):
+        if isinstance(generator, torch.Generator):
+            return fn(generator, *args)
+        return generator.draw(fn, args)
+
+    return draw
+
+
+@drawn
 def truncated_normal(generator, shape, stddev):
     """N(0, stddev) truncated at 2 sigma, like tf.truncated_normal."""
     out = torch.empty(shape)
@@ -39,9 +66,22 @@ def truncated_normal(generator, shape, stddev):
     return out * stddev
 
 
+@drawn
 def uniform(generator, shape, minval, maxval):
     """U[minval, maxval)."""
     return minval + (maxval - minval) * torch.rand(shape, generator=generator)
+
+
+@drawn
+def randint(generator, high, shape):
+    """Integers uniform over [0, high), int64."""
+    return torch.randint(0, high, shape, generator=generator)
+
+
+@drawn
+def keep(generator, keep_prob, shape):
+    """Bernoulli(keep_prob) keep mask of ``shape``, bool."""
+    return torch.rand(shape, generator=generator) < keep_prob
 
 
 def draw_hue(generator, batch, max_delta):
@@ -52,16 +92,14 @@ def draw_hue(generator, batch, max_delta):
 def draw_crop_offsets(generator, batch, hw, crop_hw):
     """Per-sample top-left corners of a random crop, each uniform over the
     valid range: (rows [B], cols [B]) int64."""
-    rows = torch.randint(0, hw[0] - crop_hw[0] + 1, (batch,),
-                         generator=generator)
-    cols = torch.randint(0, hw[1] - crop_hw[1] + 1, (batch,),
-                         generator=generator)
+    rows = randint(generator, hw[0] - crop_hw[0] + 1, (batch,))
+    cols = randint(generator, hw[1] - crop_hw[1] + 1, (batch,))
     return rows, cols
 
 
 def draw_channel_keep(generator, batch, channels, keep_prob):
     """Bernoulli(keep_prob) keep mask of whole channels, [B, 1, 1, K] bool."""
-    return torch.rand((batch, 1, 1, channels), generator=generator) < keep_prob
+    return keep(generator, keep_prob, (batch, 1, 1, channels))
 
 
 # --- applies ---------------------------------------------------------------------

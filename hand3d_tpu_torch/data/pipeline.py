@@ -7,9 +7,14 @@ bounded queue; the consumer copies them to the device and, unless it yields
 raw records, preprocesses them there. Queue depth 2 overlaps host IO with
 device compute. Every epoch is reshuffled, in the JAX package's order
 exactly; the augmentation draws come from one CPU generator per (seed,
-epoch, step). One process reads the whole dataset (no ``process_shard``),
-and the C++ record streamer of the JAX package (``use_native``) is not
-ported.
+epoch, step). One process reads the whole dataset (no ``process_shard``).
+
+``use_native=True`` reads a fresh iteration through the C++ record streamer
+(``data/native.py``, native/recordio.cpp): its threads pread, shuffle and
+assemble the batches, in its own seeded order. A resumed iteration
+(``start_epoch`` or ``skip_steps``) takes the threaded path, which follows
+the epoch order exactly, as in the JAX package. ``resident_data`` puts a
+whole dataset on the device for the resident train step.
 """
 
 import queue
@@ -70,6 +75,24 @@ def host_tensors(raw, device):
     return out
 
 
+def resident_data(dataset, device, chunk=256):
+    """The whole dataset on ``device`` in its record dtypes (uint8 images and
+    masks stay uint8), one tensor per raw field, copied ``chunk`` records at
+    a time so the host holds no second copy of it."""
+    n = len(dataset)
+    out = None
+    for a in range(0, n, chunk):
+        raw = dataset.raw_batch(np.arange(a, min(a + chunk, n)))
+        if out is None:
+            out = {k: torch.empty((n,) + v.shape[1:],
+                                  dtype=torch.from_numpy(v[:0]).dtype,
+                                  device=device) for k, v in raw.items()}
+        for k, v in raw.items():
+            out[k][a:a + len(v)].copy_(
+                torch.from_numpy(np.ascontiguousarray(v)))
+    return out
+
+
 class InputPipeline:
     """Iterates preprocessed device batches from an RHD/STB dataset.
 
@@ -80,16 +103,20 @@ class InputPipeline:
       seed: shuffle and augmentation seed.
       yield_raw: yield the raw record tensors on the device, for train steps
         that preprocess inside the loss (``train.trainer.fuse_preprocess``).
+      use_native: read a fresh iteration through the C++ record streamer
+        (``data.native``); raises ``native.NativeUnavailable`` where its
+        library cannot be built or opened.
       device: where the batches go.
     """
 
-    def __init__(self, dataset, cfg, batch_size, seed=0, yield_raw=False, *,
-                 device):
+    def __init__(self, dataset, cfg, batch_size, seed=0, yield_raw=False,
+                 use_native=False, *, device):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
         self.seed = seed
         self.yield_raw = yield_raw
+        self.use_native = use_native
         self.device = torch.device(device)
         self._preprocess = (preprocess_rhd if isinstance(dataset, RHDDataset)
                             else preprocess_stb)
@@ -127,6 +154,12 @@ class InputPipeline:
             raise ValueError(f"skip_steps {skip_steps} outside an epoch of "
                              f"{spe} steps (fold whole epochs into "
                              "start_epoch)")
+        if self.use_native and start_epoch == 0 and skip_steps == 0:
+            # the streamer owns its shuffle state and cannot start at a
+            # later epoch's order: a resumed iteration takes the threaded
+            # path below, which does
+            yield from self._iterate_native(epochs, spe)
+            return
         q = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
@@ -172,3 +205,29 @@ class InputPipeline:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+    def _iterate_native(self, epochs, spe):
+        """The C++ streamer's batches; step ``t`` of the stream draws from
+        (DATA_STREAM, seed, epoch, step) with (epoch, step) = divmod(t,
+        steps per epoch), as the JAX package folds its keys."""
+        from hand3d_tpu_torch.data.native import NativeRecordReader
+
+        reader = NativeRecordReader(
+            self.dataset.path, self.dataset.records.dtype, self.batch_size,
+            shuffle=True, seed=self.seed, queue_capacity=max(2, PREFETCH))
+        try:
+            reader.reset(-1 if epochs is None else epochs)
+            total = 0
+            while True:
+                item = reader.next_batch()
+                if item is None:
+                    return
+                raw = host_tensors(self.dataset.raw_from_records(item[0]),
+                                   self.device)
+                raw = {k: v.to(self.device, non_blocking=True)
+                       for k, v in raw.items()}
+                epoch, step = divmod(total, spe)
+                total += 1
+                yield self._emit(raw, epoch, step)
+        finally:
+            reader.close()

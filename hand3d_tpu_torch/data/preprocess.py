@@ -23,6 +23,7 @@ from hand3d_tpu_torch.ops.canonical import canonical_trafo, flip_right_hand
 from hand3d_tpu_torch.ops.image import (create_gaussian_maps,
                                         crop_image_from_xy, resize_bilinear)
 from hand3d_tpu_torch.ops.kinematics import bone_rel_trafo
+from hand3d_tpu_torch.ops.numerics import device_constant
 
 # STB -> reference keypoint order (BinaryDbReaderSTB.convert_kp, :396-410):
 # new[0] = old[0], new[i] = old[21 - i] for i in 1..20
@@ -134,11 +135,11 @@ def _hand_crop_features(cfg, image, uv21, vis21, cam_mat, image_size, noise):
     # visible-extent bounding box, clamped to the image
     coord_hw = uv21.flip(-1)
     vis = vis21[..., None]
-    inf = torch.tensor(float("inf"), device=uv21.device)
+    inf = torch.full((), float("inf"), device=uv21.device)
     min_coord = torch.clamp(torch.where(vis, coord_hw, inf).amin(1), min=0.0)
     max_coord = torch.minimum(
         torch.where(vis, coord_hw, -inf).amax(1),
-        torch.tensor(image_size, dtype=torch.float32, device=uv21.device))
+        device_constant(image_size, torch.float32, uv21.device))
     crop_size_best = 2.0 * torch.maximum(max_coord - crop_center,
                                          crop_center - min_coord).amax(-1)
     crop_size_best = torch.clamp(crop_size_best, 50.0, 500.0)
@@ -250,8 +251,8 @@ def preprocess_rhd(cfg, raw, noise=None):
         # other item, so none is computed
         th, tw = cfg.scale_target_size
         h, w = RHD_IMAGE_SIZE
-        scale_uv = torch.tensor([tw / w, th / h], dtype=torch.float32,
-                                device=uv21.device)
+        scale_uv = device_constant([tw / w, th / h], torch.float32,
+                                   uv21.device)
         return {"image": resize_bilinear(image, (th, tw)),
                 "keypoint_uv21": uv21 * scale_uv,
                 "keypoint_vis21": vis21}
@@ -314,7 +315,7 @@ def preprocess_stb(cfg, raw, noise=None):
     """
     dev = raw["kp_xyz"].device
     noise = _noise_on(cfg, noise, dev)
-    perm = torch.tensor(STB_KP_PERM, device=dev)
+    perm = device_constant(STB_KP_PERM, torch.int64, dev)
     b = raw["kp_xyz"].shape[0]
     kp_xyz21 = raw["kp_xyz"].to(torch.float32)[:, perm] / 1000.0
     uv_vis = raw["kp_uv_vis"].to(torch.float32)[:, perm]
@@ -332,15 +333,16 @@ def preprocess_stb(cfg, raw, noise=None):
     image = raw["image"].to(torch.float32) / 255.0 - 0.5
     if cfg.hue_aug:
         image = augment.random_hue(image, noise["hue"])
-    cam_mat = torch.tensor(STB_CAM_MAT, dtype=torch.float32,
-                           device=dev).expand(b, 3, 3)
+    cam_mat = device_constant(STB_CAM_MAT, torch.float32,
+                              dev).expand(b, 3, 3)
     data = {
         "image": image,
         "keypoint_xyz21": kp_xyz21,
         "keypoint_uv21": uv21,
         "keypoint_vis21": vis21,
         "cam_mat": cam_mat,
-        "hand_side": torch.tensor([[1.0, 0.0]], device=dev).expand(b, 2),
+        "hand_side": device_constant([[1.0, 0.0]], torch.float32,
+                                     dev).expand(b, 2),
     }
     data.update(_xyz_representations(kp_xyz21))
 

@@ -32,8 +32,13 @@ class RHDDataset:
     def __len__(self):
         return self.num_samples
 
+    FIELDS = ("kp_xyz", "kp_uv", "cam_mat", "image", "hand_parts", "kp_vis")
+
+    @classmethod
+    def raw_from_records(cls, recs):
+        """A structured record array as the dict of its fields."""
+        return {k: recs[k] for k in cls.FIELDS}
+
     def raw_batch(self, indices):
         """The records as a dict of numpy arrays (host side)."""
-        recs = self.records.gather(indices)
-        return {k: recs[k] for k in ("kp_xyz", "kp_uv", "cam_mat", "image",
-                                     "hand_parts", "kp_vis")}
+        return self.raw_from_records(self.records.gather(indices))

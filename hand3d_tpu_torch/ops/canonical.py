@@ -7,7 +7,7 @@ as TF32 matmuls stay off (``precision.exact_f32``).
 
 import torch
 
-from hand3d_tpu_torch.ops.numerics import PI, atan2_safe
+from hand3d_tpu_torch.ops.numerics import PI, atan2_safe, device_constant
 from hand3d_tpu_torch.ops.rotations import rot_mat_x, rot_mat_y, rot_mat_z
 
 ROOT_NODE_ID = 0  # palm keypoint, placed at the origin
@@ -52,7 +52,7 @@ def flip_right_hand(coords_xyz_canonical, cond_right):
       coords_xyz_canonical: [B, N, 3].
       cond_right: [B] bool.
     """
-    sign = torch.tensor([1.0, 1.0, -1.0], dtype=coords_xyz_canonical.dtype,
-                        device=coords_xyz_canonical.device)
+    sign = device_constant([1.0, 1.0, -1.0], coords_xyz_canonical.dtype,
+                           coords_xyz_canonical.device)
     return torch.where(cond_right[:, None, None],
                        coords_xyz_canonical * sign, coords_xyz_canonical)

@@ -11,6 +11,8 @@ version built one-hot interpolation matrices for the MXU.
 import numpy as np
 import torch
 
+from hand3d_tpu_torch.ops.numerics import cache_plain
+
 
 def _legacy_lin_coeffs(in_size, out_size, align_corners=False):
     """Gather indices + f32 lerp weights of one axis (numpy, float64 grid)."""
@@ -23,13 +25,23 @@ def _legacy_lin_coeffs(in_size, out_size, align_corners=False):
     return lo, hi, (src - lo).astype(np.float32)
 
 
+@cache_plain
+def _lin_coeffs_on(in_size, out_size, align_corners, device):
+    """:func:`_legacy_lin_coeffs` as tensors on ``device``, copied there
+    once: a training step captured in a CUDA graph copies no host memory.
+    Made outside inference mode, so that an eval's first call leaves tensors
+    a later training step can save for its backward pass."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in
+                     _legacy_lin_coeffs(in_size, out_size, align_corners))
+
+
 def _resize_axis(x, axis, out_size, align_corners):
-    lo, hi, wt = _legacy_lin_coeffs(x.shape[axis], out_size, align_corners)
+    lo, hi, wt = _lin_coeffs_on(x.shape[axis], out_size, align_corners,
+                                x.device)
     shape = [1] * x.ndim
     shape[axis] = out_size
-    wt = torch.from_numpy(wt).to(x.device).reshape(shape)
-    lo = torch.from_numpy(lo).to(x.device)
-    hi = torch.from_numpy(hi).to(x.device)
+    wt = wt.reshape(shape)
     return (x.index_select(axis, lo) * (1.0 - wt)
             + x.index_select(axis, hi) * wt)
 

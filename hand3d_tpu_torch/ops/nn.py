@@ -4,7 +4,8 @@ Activations here are NCHW and conv weights OIHW (torch layout); the model
 modules convert at their NHWC boundaries and ``weights.params_from_jax``
 converts the TF-layout HWIO kernels once. Dense kernels stay [in, out].
 Dropout masks are drawn on a CPU ``torch.Generator`` and moved to the
-device, so a training step's masks do not depend on where it runs.
+device (or taken from a draw source's plan, already there), so a training
+step's masks do not depend on where it runs.
 Convolutions and matmuls go to cuDNN / cuBLAS, as the JAX package left them
 to XLA. With ``compute_dtype=torch.bfloat16`` a conv or matmul follows
 the JAX package's bf16 mode: its input and weights are rounded to bf16, the
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from hand3d_tpu_torch import precision
+from hand3d_tpu_torch.data import augment
 
 NEG_SLOPE_OF_RELU = 0.01  # general.py:28
 CONV_BIAS_INIT = 1e-4  # general.py:50
@@ -120,8 +122,9 @@ def dense_relu(x, params, compute_dtype=None):
 def keep_mask(generator, keep_prob, shape, device):
     """Bernoulli(keep_prob) keep mask of ``shape``, drawn on the CPU
     ``generator`` and moved to ``device``: the card and the CPU draw the
-    same mask at the same step."""
-    return (torch.rand(shape, generator=generator) < keep_prob).to(device)
+    same mask at the same step. A draw source in the generator's place
+    gives the mask it planned (``data.augment.drawn``)."""
+    return augment.keep(generator, keep_prob, tuple(shape)).to(device)
 
 
 def dropout(x, keep_prob, train, generator=None):

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from hand3d_tpu_torch.ops.kernels import floodfill
+from hand3d_tpu_torch.ops.numerics import device_constant
 
 DILATION_FILTER_SIZE = 21  # general.py:236
 
@@ -101,7 +102,7 @@ def calc_center_bb(binary_class_mask, fallback_center=(160.0, 160.0),
     dev = mask.device
     rows = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
     cols = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
 
     def masked(vals, fill):
         return torch.where(mask, vals, fill)
@@ -118,9 +119,9 @@ def calc_center_bb(binary_class_mask, fallback_center=(160.0, 160.0),
     center = 0.5 * (start + end)
     center_ok = torch.isfinite(center).all(dim=1, keepdim=True)
     center = torch.where(center_ok, center,
-                         torch.tensor(fallback_center, device=dev))
+                         device_constant(fallback_center, torch.float32, dev))
 
     crop_size = torch.maximum(x_max - x_min, y_max - y_min)[:, None]
     crop_size = torch.where(torch.isfinite(crop_size), crop_size,
-                            torch.tensor(float(fallback_size), device=dev))
+                            torch.full((), float(fallback_size), device=dev))
     return center, bb, crop_size

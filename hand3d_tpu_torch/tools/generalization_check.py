@@ -15,7 +15,10 @@ not just memorizes (counterpart of tools/generalization_check.py).
     the warm start's;
   * run B is SIGTERM-killed mid-run and resumed with --resume; its final
     params must equal run A's bit for bit. Both runs use --deterministic
-    (deterministic cuDNN, cuBLAS and torch algorithms).
+    (deterministic cuDNN, cuBLAS and torch algorithms);
+  * ``--steps-per-call`` steps a device call (default 50, as the JAX tool;
+    3 in ``--smoke``): evals and the SIGTERM's stop land on window
+    boundaries.
 
 ``--smoke`` is a tiny plumbing run for the CPU: it keeps the warm start, the
 LR crossing and the resume check (run B stopped at half by its step count
@@ -100,7 +103,8 @@ def _trainer_argv(args, work, run, max_iter, resume=False):
         "--show-loss-freq", str(max(1, args.steps // 20)),
         "--snapshot-dir", os.path.join(work, f"snap_{run}"),
         "--snapshot-freq", str(10 * max_iter),  # final (+ preemption) only
-        "--steps-per-call", "1", "--crop-size", str(args.crop_size),
+        "--steps-per-call", str(args.steps_per_call),
+        "--crop-size", str(args.crop_size),
         "--eval-data", os.path.join(work, "rhd_evaluation.bin"),
         "--eval-freq", str(max(1, args.steps // args.evals)),
         *(["--eval-batches", str(args.eval_batches)]
@@ -143,6 +147,9 @@ def main(argv=None):
     ap.add_argument("--evals", type=int, default=4,
                     help="In-training val evals across the run")
     ap.add_argument("--eval-batches", type=int, default=None)
+    ap.add_argument("--steps-per-call", type=int, default=50,
+                    help="train_posenet's --steps-per-call (1: the per-step "
+                         "path)")
     ap.add_argument("--timeout", type=int, default=2400,
                     help="Per-run wall timeout, seconds")
     ap.add_argument("--improve-ratio", type=float, default=0.6,
@@ -161,6 +168,7 @@ def main(argv=None):
         args.train_records = min(args.train_records, 24)
         args.val_records = min(args.val_records, 8)
         args.crop_size = min(args.crop_size, 64)
+        args.steps_per_call = min(args.steps_per_call, 3)
         args.eval_batches = 1
         args.evals = 2
     if args.lr_boundary >= args.steps:
@@ -297,6 +305,7 @@ def main(argv=None):
     ok = all(judged)
     print(json.dumps({"gate": "generalization_check", "ok": ok,
                       "smoke": args.smoke, "device": args.device,
+                      "steps_per_call": args.steps_per_call,
                       "steps": args.steps, "lr_boundary": args.lr_boundary,
                       "train_records": args.train_records,
                       "val_records": args.val_records,

@@ -15,8 +15,10 @@ step budgets, drop ratios and eval bounds are the JAX tool's:
   * joint (proposed): 2x the steps, warm-started from THIS run's posenet and
     lifting snapshots, drop >= 0.9x and the end-to-end 3D eval <= 40 mm.
 
-``--only joint`` therefore runs posenet and lifting first. Training is one
-step a device call (``--steps-per-call 1``). Everything is written into a
+``--only joint`` therefore runs posenet and lifting first. Training runs
+``--steps-per-call`` steps a device call (default 50, as the JAX tool:
+replays of one captured CUDA graph over the records held on the device;
+1 is the per-step path). Everything is written into a
 temporary directory that is deleted at the end. The last line of standard
 output is one JSON summary; the exit code is 0 when every trainer passed.
 
@@ -38,7 +40,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 STAGES = ("handsegnet", "posenet", "lifting", "joint")
 
 
-def _trainers(steps, data_dir, work, device):
+def _trainers(steps, data_dir, work, device, steps_per_call=50):
     """{name: (argv, min drop ratio, (eval key, bound) or None)} in run
     order; joint reads posenet's and lifting's final snapshots."""
     train_bin = os.path.join(data_dir, "rhd_training.bin")
@@ -50,7 +52,7 @@ def _trainers(steps, data_dir, work, device):
             "--batch-size", "8", "--max-iter", str(n_steps),
             "--show-loss-freq", str(max(1, n_steps // 12)),
             "--snapshot-freq", str(10 * n_steps),  # the final snapshot only
-            "--steps-per-call", "1", "--lr", "1e-4", "1e-4",
+            "--steps-per-call", str(steps_per_call), "--lr", "1e-4", "1e-4",
             "--lr-iter", "1000000", "--device", device,
             "--snapshot-dir", os.path.join(work, f"snap_{name}"),
             "--metrics-log", os.path.join(work, f"{name}.jsonl")]
@@ -124,6 +126,9 @@ def main(argv=None):
                     help="The trainers' --device (default cuda)")
     ap.add_argument("--timeout", type=int, default=1800,
                     help="Per-trainer wall timeout, seconds")
+    ap.add_argument("--steps-per-call", type=int, default=50,
+                    help="The trainers' --steps-per-call (1: the per-step "
+                         "path)")
     args = ap.parse_args(argv)
 
     from hand3d_tpu_torch.data.synthetic import make_rhd_bin
@@ -141,7 +146,8 @@ def main(argv=None):
         # the same records under the eval name: a memorization EPE
         make_rhd_bin(os.path.join(data_dir, "rhd_evaluation.bin"),
                      num_records=args.records)
-        trainers = _trainers(args.steps, data_dir, work, args.device)
+        trainers = _trainers(args.steps, data_dir, work, args.device,
+                             args.steps_per_call)
         for name, (cmd, min_ratio, eval_bound) in trainers.items():
             if name not in run:
                 continue
@@ -174,6 +180,7 @@ def main(argv=None):
     ok = all(r["ok"] for r in results.values())
     print(json.dumps({"gate": "overfit_check", "ok": ok, "steps": args.steps,
                       "records": args.records, "device": args.device,
+                      "steps_per_call": args.steps_per_call,
                       "wall_s": time.time() - t_start,
                       "trainers": results}), flush=True)
     return 0 if ok else 1

@@ -230,9 +230,14 @@ def test_remat_gives_equal_gradients_and_draws_equal_masks():
     # another key draws other masks
     other, _ = _step_grads(_lifting_loss(True), batch, key=(0, 1))
     assert not torch.equal(loss, other)
-    with pytest.raises(NotImplementedError, match="What training left out"):
+    # a named policy rewinds the same way; a name JAX lacks raises
+    loss_d, dots = _step_grads(_lifting_loss(True), batch,
+                               remat="dots_saveable")
+    assert torch.equal(loss, loss_d)
+    assert all(torch.equal(a, b) for a, b in zip(plain, dots))
+    with pytest.raises(ValueError, match="unknown remat policy"):
         trainer.make_train_step(_lifting_loss(True), RecordGrads(),
-                                remat="dots_saveable")
+                                remat="not_a_policy")
 
 
 def test_lifting_dropout_matches_jax_with_its_masks(monkeypatch):

@@ -1,8 +1,9 @@
 """The port's four training CLIs on the CPU (``--device cpu``), at small
 sizes on the fixture's 320x320 records: they train, print the JAX CLIs'
 lines, snapshot, resume exactly, log the scheduled LR, warm-start from a
-snapshot, run the in-training eval, and refuse the flags the port does not
-have yet.
+snapshot, run the in-training eval, train device-resident
+(``--steps-per-call``) under a named recompute policy, and refuse the flags
+the port does not have yet.
 """
 
 import importlib
@@ -98,9 +99,10 @@ def test_posenet_in_training_eval_and_warm_start(data, tmp_path, capsys):
 @pytest.mark.parametrize("flags,error,match", [
     (["--qat"], NotImplementedError, "Quantization"),
     (["--mesh", "2x1"], NotImplementedError, "What training left out"),
-    (["--steps-per-call", "4"], NotImplementedError, "What training left out"),
-    (["--remat", "dots_saveable"], NotImplementedError, "What training left out"),
+    (["--steps-per-call", "4", "--no-fused"], ValueError, "yield_raw"),
+    (["--remat", "save_only_these_names"], TypeError, "policy factory"),
     (["--accum-steps", "3"], ValueError, "not divisible"),
+    (["--remat", "not_a_policy"], ValueError, "unknown remat policy"),
 ])
 def test_unported_flags_raise(data, tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
@@ -113,3 +115,25 @@ def test_remat_and_accumulation_train(data, tmp_path, capsys):
                                 "--remat", "--accum-steps", "2"))
     lines = capsys.readouterr().out.splitlines()
     assert [int(LOSS_LINE.match(l).group(1)) for l in lines] == [0, 1]
+
+
+@pytest.mark.parametrize("name", list(STAGES))
+def test_resident_steps_under_a_remat_policy_equal_the_per_step_run(
+        name, data, tmp_path, capsys):
+    """--steps-per-call 3 --remat dots_saveable over 4 steps (windows 3 + 1,
+    across the LR boundary at 2): the loss lines and the final state of the
+    per-step run without remat, bit for bit (the CPU)."""
+    resident = main(name, _argv(name, data, tmp_path / "r", 4,
+                                "--steps-per-call", "3",
+                                "--remat", "dots_saveable"))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("resident dataset: 6 records")
+    assert [int(LOSS_LINE.match(l).group(1)) for l in lines[1:]] == [
+        0, 1, 2, 3]
+    per_step = main(name, _argv(name, data, tmp_path / "p", 4))
+    for a, b in zip(trainer.tree_leaves(resident.params),
+                    trainer.tree_leaves(per_step.params)):
+        assert torch.equal(a, b)
+    rows = [json.loads(l) for l in open(tmp_path / "r" / "m.jsonl")]
+    assert [(r["step"], r["lr"]) for r in rows] == [
+        (0, 1e-4), (1, 1e-4), (2, 1e-5), (3, 1e-5)]
