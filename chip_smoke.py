@@ -114,7 +114,23 @@ line is printed:
    .npz of the same tree, each decode equal to its twin; 3 steps of
    train_posenet warm-started from the checkpoint, step 0 holding the
    checkpoint's PoseNet2D layers and the trainer's seeded others, its
-   in-training eval launching the decode kernel.
+   in-training eval launching the decode kernel;
+13. quant: the int8, int8_static (scales calibrated on the card by
+   HandPoseEstimator's own path on 8 other frames) and int8_seg trees
+   quantized on the card equal to the CPU's bit for bit; every int8 conv of
+   the int8 cascade on 8 frames: its accumulator (TF32 tensor cores over
+   integer operands) equal to F.conv2d in float64 of the same operands at
+   every element below 2**24; each mode's cascade held flip-aware to the
+   port's CPU run of the same tree (INT8_* bounds), both kernels held to
+   their twins on its inputs; HandPoseEstimator(quantize="int8") equal to
+   the cascade and an exported int8 artifact, loaded in a child process,
+   equal to the estimator bit for bit, its bytes beside f32's; frames/s of
+   each mode at batches 1, 32 and 128 beside f32's and bf16's;
+   train_posenet --qat on phase 10's file: step 0 held to the CPU
+   kink-aware (the fake quantizers' grid steps that differ counted), 8
+   steps per step twice and at --steps-per-call 4, the resident run's step
+   0 loss equal to the per-step run's and its params within RESIDENT_SPREAD
+   times the card's own per-step spread.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -153,14 +169,15 @@ from hand3d_tpu_torch.eval import harnesses
 from hand3d_tpu_torch.models import cascade, posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.models.poseprior import VARIANTS
-from hand3d_tpu_torch.ops import keypoints, nn, segmentation
+from hand3d_tpu_torch.ops import keypoints, nn, quant, segmentation
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
 from hand3d_tpu_torch.cli import serve
 from hand3d_tpu_torch.export import export_estimator
-from hand3d_tpu_torch.serving import (AutoBucketEstimator, DynamicBatcher,
-                                      HandPoseEstimator, _map_back,
-                                      _resize_to, normalize_images)
+from hand3d_tpu_torch.batching import select_serving_outputs
+from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
+                                      DynamicBatcher, HandPoseEstimator,
+                                      _map_back, _resize_to, normalize_images)
 from hand3d_tpu_torch.train import loop, trainer
 from hand3d_tpu_torch.weights import tf_ckpt
 
@@ -313,6 +330,39 @@ BF16_COORD3D_ATOL = 2e-4  # measured 2.5e-5
 # layer's largest |output| (4e-6 for cuDNN's f32 path). TF32 on unrounded
 # operands, the witness that the check sees inexact products, is far above.
 BF16_CONV_RTOL_OF_MAX = 5e-5
+BF16_FPS = {}  # phase 8's frames/s, for the int8 lines
+EXPORT_BYTES = {}  # phase 7's f32 artifact, for the int8 artifact's line
+# int8 (phase quant): the int8 (dynamic activation scales), int8_static
+# (static scales calibrated on the card by HandPoseEstimator's own path on
+# QUANT_CALIB_FRAMES other frames) and int8_seg (HandSegNet alone) trees,
+# made on the card and on the CPU from the same float tree and scales
+QUANT_MODES = ("int8", "int8_static", "int8_seg")
+QUANT_CALIB_FRAMES = 8
+QUANT_PARITY_IMAGES = 2
+QUANT_ITERS = {1: 20, 32: 5, 128: 3}
+# each int8 conv's accumulator is a conv of integers |q| <= 127: below
+# 2**24 every order of the f32 sum is exact, so the card's (TF32 tensor
+# cores) must equal float64's there element for element
+ACC_EXACT = 2.0 ** 24
+# int8 cascade, card vs the port's CPU run of the same int8 tree: each int8
+# layer's sum is exact on both, but a float layer one ulp apart (the first
+# convs and the heads stay float) puts an activation on the other side of a
+# rounding boundary of the next grid now and then, and that step moves
+# everything after it
+# (measured on NVIDIA H100 80GB HBM3, 700 W, int8 / int8_static / int8_seg:
+# hand_scoremap 1.0e-4 / 5.4e-5 / 1.0e-4, PoseNet's scoremap 3.7e-5 /
+# 2.0e-5 / 3.4e-8, coord3d 3.7e-9 / 7.0e-6 / 3.4e-8)
+INT8_SCOREMAP_ATOL = 5e-4
+INT8_FLIP_BOUND = 1e-3
+INT8_COORD3D_ATOL = 1e-4
+# QAT: train_posenet --qat on phase 10's file, per step and resident; step
+# 0 held to the CPU run that takes the card's round(), leaky ReLU and max
+# pool choices (qat_first_step_vs_cpu; measured on NVIDIA H100 80GB HBM3,
+# 700 W: 5,085 of 79 million round() choices overridden, within 4.6e-5 of
+# the largest |input| of the boundary, gradients within 2.4e-5)
+QAT_BATCH = 8
+QAT_STEPS = 8
+QAT_K = 4  # windows 4 + 4
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -968,19 +1018,18 @@ def http_checks(dev, params_np, predict, counts):
                 np.median(handler_ms))}
 
 
-def phase_export(dev, params_np):
-    """export_estimator at batch 8 on the card, loaded by a child process
-    that imports only hand3d_tpu_torch.export: both kernels launch there and
-    its answers equal the live estimator's bit for bit."""
-    rng = np.random.default_rng(8)
-    images = rng.integers(0, 256, (SERVE_BATCH + 3, H, W, 3), np.uint8)
-    live = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
-                             input_hw=(H, W), device=dev).predict(images)
+def exported_answers(params_np, dev, images, live, **kwargs):
+    """export_estimator(params_np, **kwargs) at batch SERVE_BATCH on the
+    card, loaded by a child process that imports only
+    hand3d_tpu_torch.export and run on ``images``: both kernels must launch
+    there, no model module be imported, and the answers equal ``live``
+    bit for bit. Returns the child's report with the artifact's bytes and
+    the seconds of the export and the child."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "cascade.h3dx")
         t0 = time.perf_counter()
         blob = export_estimator(params_np, path, batch_size=SERVE_BATCH,
-                                input_hw=(H, W), device=dev)
+                                input_hw=(H, W), device=dev, **kwargs)
         export_s = time.perf_counter() - t0
         np.save(os.path.join(tmp, "images.npy"), images)
         t0 = time.perf_counter()
@@ -1004,9 +1053,22 @@ def phase_export(dev, params_np):
     for k, v in live.items():
         require(np.array_equal(exported[k], v),
                 f"exported {k} differs from the live estimator's")
+    return {"artifact_bytes": len(blob), "export_s": export_s,
+            "child_s": child_s, **report}
+
+
+def phase_export(dev, params_np):
+    """export_estimator at batch 8 on the card, loaded by a child process
+    that imports only hand3d_tpu_torch.export: both kernels launch there and
+    its answers equal the live estimator's bit for bit."""
+    rng = np.random.default_rng(8)
+    images = rng.integers(0, 256, (SERVE_BATCH + 3, H, W, 3), np.uint8)
+    live = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
+                             input_hw=(H, W), device=dev).predict(images)
+    report = exported_answers(params_np, dev, images, live)
+    EXPORT_BYTES["f32"] = report["artifact_bytes"]
     log(json.dumps({"export": "torch.export", "batch": SERVE_BATCH,
-                    "input_hw": [H, W], "artifact_bytes": len(blob),
-                    "export_s": export_s, "child_s": child_s, **report,
+                    "input_hw": [H, W], **report,
                     "outputs": "bit-equal to the live estimator"}))
     return report["launches"]
 
@@ -1087,6 +1149,7 @@ def phase_bf16(dev, params_np, f32_fps):
         add_counts(counts, kernel_counts())
         require_exact_f32()
         med = float(np.median(per_batch))
+        BF16_FPS[b] = b * 1000.0 / med
         rows.append({"batch": b, "ms_per_batch_median": med,
                      "frames_per_s": b * 1000.0 / med,
                      "f32_frames_per_s": f32_fps[b]})
@@ -1112,6 +1175,353 @@ def phase_bf16(dev, params_np, f32_fps):
                     "convs_checked": n_convs,
                     "conv_err_of_max": conv_err, "launches": counts}))
     require_exact_f32()
+    return counts
+
+
+@contextlib.contextmanager
+def recorded_accumulators():
+    """Record every int8 conv of ops.quant: (x, params, stride, acc)."""
+    calls = []
+    base = quant.conv2d_accumulator
+
+    def accumulator(x, params, stride=1):
+        acc, s_x = base(x, params, stride)
+        calls.append((x, params, stride, acc))
+        return acc, s_x
+
+    quant.conv2d_accumulator = accumulator
+    try:
+        yield calls
+    finally:
+        quant.conv2d_accumulator = base
+
+
+def int8_accumulators(tree, image, side):
+    """Each int8 conv of the cascade on ``tree``: its accumulator on the
+    card (torch.ops.hand3d.int8_conv, TF32 on for that call) against
+    F.conv2d in float64 of the same integer operands on the card. Returns
+    the layers, the largest |acc|, the elements at or above 2**24 and the
+    unequal elements below it."""
+    with recorded_accumulators() as calls, torch.inference_mode():
+        ColorHandPose3D().inference(tree, image, side)
+    out = {"layers": len(calls), "largest_abs_acc": 0.0, "beyond_2_24": 0,
+           "unequal_below_2_24": 0, "elements": 0}
+    with torch.inference_mode():
+        for x, params, stride, acc in calls:
+            x_q, _ = quant._quantize_input(x, params)
+            w_q = params["weights_q"].double()
+            x_q, padding = nn.same_padded(x_q.double(), w_q.shape[2],
+                                          w_q.shape[3], stride)
+            want = F.conv2d(x_q, w_q, stride=stride, padding=padding)
+            exact = want.abs() < ACC_EXACT
+            out["largest_abs_acc"] = max(out["largest_abs_acc"],
+                                         want.abs().max().item())
+            out["beyond_2_24"] += int((~exact).sum())
+            out["unequal_below_2_24"] += int(
+                ((acc.double() != want) & exact).sum())
+            out["elements"] += want.numel()
+    return out
+
+
+def trees_equal(a, b):
+    """Two torch trees equal leaf for leaf (dtype and bits); the leaves."""
+    n = 0
+    for path, layer in quant.layer_paths(b).items():
+        got = quant.layer_paths(a)[path]
+        require(set(got) == set(layer), f"{path}: {sorted(got)}")
+        for k, v in layer.items():
+            require(got[k].dtype == v.dtype
+                    and torch.equal(got[k].cpu(), v.cpu()),
+                    f"{path} {k} differs between the card and the CPU")
+            n += 1
+    return n
+
+
+def quant_trees(dev, params_np):
+    """{mode: (card tree, CPU tree)} quantized on each device from the same
+    float tree; int8_static with the scales that HandPoseEstimator's
+    calibration made on the card. Also the seconds of that calibration."""
+    rng = np.random.default_rng(14)
+    calib = rng.integers(0, 256, (QUANT_CALIB_FRAMES, H, W, 3), np.uint8)
+    t0 = time.perf_counter()
+    static = HandPoseEstimator(params_np, batch_size=1, input_hw=(H, W),
+                               quantize="int8_static",
+                               calibration_images=calib, device=dev).params
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    scales = {path: layer["act_scale"].cpu().numpy()
+              for path, layer in quant.layer_paths(static).items()
+              if "act_scale" in layer}
+    kwargs = {"int8": {}, "int8_static": {"act_scales": scales},
+              "int8_seg": {"scopes": {"handsegnet"}}}
+    floats = {d: weights.params_from_jax(params_np, d) for d in (dev, CPU)}
+    trees = {mode: tuple(quant.quantize_params_int8(floats[d], **kw)
+                         for d in (dev, CPU))
+             for mode, kw in kwargs.items()}
+    require(trees_equal(trees["int8_static"][0], static) > 0,
+            "the estimator's int8_static tree differs from quantizing with "
+            "its own scales")
+    return trees, calib_s
+
+
+def quant_throughput(dev, trees, rng):
+    """frames/s of each int8 mode at TIME_BATCHES (CUDA events around
+    predict, as phase 5 times f32), and the kernel launches of those
+    predicts."""
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    rows = {}
+    for mode in QUANT_MODES:
+        params = DeviceParams(trees[mode][0], dev, mode)
+        rows[mode] = {}
+        for b in TIME_BATCHES:
+            est = HandPoseEstimator(params, batch_size=b, input_hw=(H, W),
+                                    device=dev)
+            images = rng.integers(0, 256, (b, H, W, 3), dtype=np.uint8)
+            est.predict(images)
+            zero_counts()
+            per_batch = [cuda_ms(lambda: est.predict(images), 1)
+                         for _ in range(QUANT_ITERS[b])]
+            add_counts(counts, kernel_counts())
+            med = float(np.median(per_batch))
+            rows[mode][b] = b * 1000.0 / med
+            del est
+        torch.cuda.empty_cache()
+    require_exact_f32()
+    return rows, counts
+
+
+@contextlib.contextmanager
+def recorded_grids():
+    """Record the grid index that every fake-quantized input of QAT took
+    (ops.quant.fake_quant_act): each element's round() choice."""
+    grids = []
+    base = quant.fake_quant_act
+
+    def fake_quant_act(x):
+        scale = quant._act_scale(x.detach())
+        grids.append(torch.clamp(torch.round(x.detach() / scale),
+                                 -quant.QMAX, quant.QMAX).to(torch.int8))
+        return base(x)
+
+    quant.fake_quant_act = fake_quant_act
+    try:
+        yield grids
+    finally:
+        quant.fake_quant_act = base
+
+
+@contextlib.contextmanager
+def pinned_grids(grids):
+    """Take another run's grid indices at every fake-quantized input, on
+    this run's own scales. Counts where this run's own round() differs and,
+    over those, how far its x lay from the boundary between the two grid
+    points, over the sample's largest |x| (127 grid steps; half a step,
+    3.9e-3, or more is no rounding flip)."""
+    stats = {"grid_values": 0, "grid_flipped": 0, "grid_flip_margin": 0.0}
+    calls = iter(grids)
+    base = quant.fake_quant_act
+
+    def fake_quant_act(x):
+        idx = next(calls).to(x.device, x.dtype)
+        scale = quant._act_scale(x.detach())
+        t = x.detach() / scale
+        own = torch.clamp(torch.round(t), -quant.QMAX, quant.QMAX)
+        flip = own != idx
+        stats["grid_values"] += own.numel()
+        if flip.any():
+            stats["grid_flipped"] += int(flip.sum())
+            stats["grid_flip_margin"] = max(
+                stats["grid_flip_margin"],
+                (t - (own + idx) / 2)[flip].abs().max().item() / quant.QMAX)
+        return quant._ste(x, idx * scale)
+
+    quant.fake_quant_act = fake_quant_act
+    try:
+        yield stats
+    finally:
+        quant.fake_quant_act = base
+    require(next(calls, None) is None,
+            "the pinned run made fewer fake-quant calls than the recorded one")
+
+
+def qat_first_step_vs_cpu(module, argv):
+    """Step 0 of train_posenet --qat on the card against the port's CPU run
+    of the same params, batch and noise. A fake quantizer's round() is a
+    kink: one ulp in an input can move it a grid step, and that step moves
+    every later layer's input, whose grids then move too, so the two runs'
+    own gradients part by far more than phase 10's float ones. So the card
+    is held to the CPU run that takes the card's choice at every round(),
+    leaky ReLU and max pool: within TRAIN_GRAD_RTOL_OF_MAX of each tensor's
+    max, every choice it overrode within TRAIN_KINK_MARGIN of the call's
+    largest |input| of its kink (the rounding boundary, the ReLU's 0, the
+    pool window's maximum). The CPU's unpinned run is reported beside
+    it."""
+    t0 = time.perf_counter()
+    with recorded_grids() as grids:
+        card = first_step(module.setup(argv))
+    cpu = first_step(module.setup(argv + ["--device", "cpu"]))
+    with pinned_grids(grids) as grid_stats:
+        pinned = first_step(module.setup(argv + ["--device", "cpu"]),
+                            pin=card.kinks)
+    for k, v in card.raw.items():
+        require(torch.equal(v.cpu(), cpu.raw[k]), f"first batch differs: {k}")
+    paths = trainer.tree_paths(card.state.params)
+    return {"loss": card.loss.item(), "loss_cpu": cpu.loss.item(),
+            "loss_rel_err": abs(card.loss.item() - pinned.loss.item())
+            / abs(pinned.loss.item()),
+            "grad_err_of_max_vs_cpu_on_card_choices": grad_errs(
+                "posenet", paths, card.grads, pinned.grads),
+            "cpu_choices_overridden": {**pinned.kinks, **grid_stats},
+            "fake_quant_inputs": len(grids),
+            "unpinned_cpu": {
+                "grad_err_of_max": grad_errs("posenet", paths, card.grads,
+                                             cpu.grads),
+                "kinks_differ": kinks_differ(card.kinks, cpu.kinks)},
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_qat(dev):
+    """train_posenet --qat at full width on phase 10's file: step 0 held to
+    the CPU; QAT_STEPS steps per step (twice: the card's own spread) and at
+    --steps-per-call QAT_K, the resident run held to the per-step one."""
+    rng = np.random.default_rng(4)  # phase 10's file, byte for byte
+    module = train_posenet
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train.bin")
+        write_rhd_file(data, TRAIN_RECORDS, rng)
+        _, argv = train_argv("posenet", data, tmp, QAT_STEPS, "--qat",
+                             "--batch-size", str(QAT_BATCH))
+        step0 = qat_first_step_vs_cpu(module, argv)
+        init = [p.detach().clone()
+                for p in trainer.tree_leaves(module.setup(argv).params)]
+        with timed_steps() as events:
+            per_step, rows, _, _, _ = resident_run(
+                module, argv, os.path.join(tmp, "per_step.jsonl"))
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        again = resident_run(module, argv, os.path.join(tmp, "again.jsonl"))
+        resident, r_rows, windows, replays, _ = resident_run(
+            module, argv + ["--steps-per-call", str(QAT_K)],
+            os.path.join(tmp, "resident.jsonl"))
+    require_exact_f32()
+    loss0 = [r["loss"] for r in rows if "loss" in r][0]
+    r_loss0 = [r["loss"] for r in r_rows if "loss" in r][0]
+    spread = param_rel_l2(trainer.tree_leaves(again[0].params),
+                          trainer.tree_leaves(per_step.params), init)
+    err = param_rel_l2(trainer.tree_leaves(resident.params),
+                       trainer.tree_leaves(per_step.params), init)
+    bound = max(RESIDENT_PARAM_REL_L2, RESIDENT_SPREAD * spread)
+    out = {"first_step_vs_cpu": step0, "steps": QAT_STEPS,
+           "per_step_ms_median": float(np.median(step_ms[2:])),
+           "resident_ms_per_step": [a.elapsed_time(b) / k
+                                    for a, b, k in windows],
+           "replays": replays, "loss0": loss0, "loss0_resident": r_loss0,
+           "params_rel_l2_vs_per_step": err, "per_step_rerun_rel_l2": spread,
+           "params_bound": bound}
+    over = step0["cpu_choices_overridden"]
+    require(step0["fake_quant_inputs"] == 25,
+            f"QAT step 0 fake-quantized {step0['fake_quant_inputs']} inputs")
+    require(step0["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and step0["grad_err_of_max_vs_cpu_on_card_choices"]["worst"]
+            <= TRAIN_GRAD_RTOL_OF_MAX
+            and over["grid_flip_margin"] <= TRAIN_KINK_MARGIN
+            and over["relu_flip_margin"] <= TRAIN_KINK_MARGIN
+            and over["pool_flip_margin"] <= TRAIN_KINK_MARGIN,
+            f"QAT step 0 differs from the CPU's: {out}")
+    require(replays == [QAT_STEPS] and r_loss0 == loss0,
+            f"QAT resident run: {out}")
+    require(err <= bound, f"QAT resident params {err:.3g} from the per-step "
+            f"run's (bound {bound:.3g}): {out}")
+    return out
+
+
+def phase_quant(dev, params_np, f32_fps, err):
+    """int8 at 240x320: the trees quantized on the card bit-equal to the
+    CPU's; every int8 conv's accumulator exact; the int8, int8_static and
+    int8_seg cascades held flip-aware to the port's CPU run of the same
+    tree, with both kernels held to their twins on their inputs; the int8
+    estimator and an exported int8 artifact equal to the cascade bit for
+    bit; frames/s at 1 / 32 / 128 beside f32's and bf16's; QAT (phase_qat).
+    Returns the kernel launches."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(13)
+    trees, calib_s = quant_trees(dev, params_np)
+    leaves = sum(trees_equal(*trees[m]) for m in QUANT_MODES)
+    frames = rng.integers(0, 256, (SLICE_BATCH, H, W, 3), np.uint8)
+    image = torch.from_numpy(normalize_images(frames))
+    side = torch.tensor([[1.0, 0.0]] * SLICE_BATCH)
+    acc = int8_accumulators(trees["int8"][0], image.to(dev), side.to(dev))
+    log(json.dumps({"int8_accumulators": acc}))
+    require(acc["unequal_below_2_24"] == 0 and acc["layers"] == 41,
+            f"int8 accumulators on the card are not exact: {acc}")
+
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    cascades = {}
+    n = QUANT_PARITY_IMAGES
+    for mode in QUANT_MODES:
+        card, cpu = trees[mode]
+        zero_counts()
+        got = parity.port_fields(card, image[:n].to(dev), side[:n].to(dev))
+        add_counts(counts, kernel_counts())
+        ref = parity.port_fields(cpu, image[:n], side[:n])
+        cascades[mode] = parity.check_cascade(
+            ref, got, parity.port_rerun(cpu, image[:n], side[:n]),
+            scoremap_atol=INT8_SCOREMAP_ATOL, coord3d_atol=INT8_COORD3D_ATOL,
+            flip_bound=INT8_FLIP_BOUND)
+        det, seed, sm = slice_inputs(card, image.to(dev), side.to(dev))
+        pairs = {
+            "flood_fill": (floodfill.flood_fill_cuda(det, seed, NUM_PASSES),
+                           segmentation.flood_fill_torch(det, seed,
+                                                         NUM_PASSES)),
+            "decode_upsampled": (decode.decode_upsampled_cuda(sm, FACTOR),
+                                 keypoints.decode_upsampled_torch(sm,
+                                                                  FACTOR))}
+        for name, (a, b) in pairs.items():
+            err[name] = max(err[name], (a - b).abs().max().item())
+            require(torch.equal(a, b), f"{name} differs from its twin on "
+                    f"the {mode} cascade's input")
+    for name, k in counts.items():
+        require(k > 0, f"the int8 cascades never launched {name}")
+
+    # serving: the estimator and an exported artifact answer as the cascade
+    est = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
+                            input_hw=(H, W), quantize="int8", device=dev)
+    zero_counts()
+    live = est.predict(frames)
+    add_counts(counts, kernel_counts())
+    with torch.inference_mode():
+        want = select_serving_outputs(ColorHandPose3D().inference(
+            trees["int8"][0], image.to(dev), side.to(dev),
+            keypoints_scoremap=False))
+    for k, v in want.items():
+        require(np.array_equal(live[k], v.cpu().numpy()),
+                f"the int8 estimator's {k} differs from the cascade's")
+    report = exported_answers(params_np, dev, frames, live, quantize="int8")
+    add_counts(counts, report["launches"])
+    del est
+
+    fps, timed_counts = quant_throughput(dev, trees, rng)
+    add_counts(counts, timed_counts)
+    qat = phase_qat(dev)
+    log(json.dumps({
+        "int8": {mode: {"frames_per_s": {str(b): v for b, v in
+                                         fps[mode].items()},
+                        "card_vs_cpu": cascades[mode]}
+                 for mode in QUANT_MODES},
+        "f32_frames_per_s": {str(b): v for b, v in f32_fps.items()},
+        "bf16_frames_per_s": {str(b): v for b, v in BF16_FPS.items()},
+        "tolerances": {"scoremap_atol": INT8_SCOREMAP_ATOL,
+                       "coord3d_atol": INT8_COORD3D_ATOL,
+                       "flip_bound": INT8_FLIP_BOUND},
+        "leaves_card_equal_cpu": leaves, "calibration_s": calib_s,
+        "estimator": "bit-equal to the cascade",
+        "export": {"artifact_bytes": report["artifact_bytes"],
+                   "f32_artifact_bytes": EXPORT_BYTES.get("f32"),
+                   "export_s": report["export_s"],
+                   "child_s": report["child_s"],
+                   "launches": report["launches"],
+                   "outputs": "bit-equal to the live estimator"},
+        "qat": qat, "launches": counts,
+        "phase_s": time.perf_counter() - t_start}))
     return counts
 
 
@@ -2554,7 +2964,8 @@ def main():
             ("eval", lambda: phase_eval(dev, params_np, err)),
             ("train", lambda: phase_train(dev)),
             ("train_resident", lambda: phase_train_resident(dev)),
-            ("weights", lambda: phase_weights(dev, params_np))):
+            ("weights", lambda: phase_weights(dev, params_np)),
+            ("quant", lambda: phase_quant(dev, params_np, f32_fps, err))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0

@@ -117,9 +117,7 @@ def add_train_args(p, max_iter, lr, lr_iter, snapshot_dir):
     p.add_argument("--snapshot-dir", default=snapshot_dir)
     p.add_argument("--snapshot-freq", type=int, default=5000)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--qat", action="store_true",
-                   help="Quantization-aware training: not ported, raises "
-                        "(ROADMAP.md 'Still to port', 'Quantization').")
+    add_qat_arg(p)
     add_show_loss_arg(p)
     add_steps_per_call_arg(p)
     p.add_argument("--metrics-log", default=None,
@@ -175,16 +173,63 @@ def add_memory_args(p):
     return p
 
 
+def add_qat_arg(p):
+    p.add_argument("--qat", action="store_true",
+                   help="Quantization-aware training: train under the int8 "
+                        "fake-quant view (ops.quant.qat_view) so the weights "
+                        "adapt to the deployed int8 numerics; a snapshot is "
+                        "a float tree, quantize_params_int8 of it the "
+                        "deployment tree.")
+
+
+def maybe_qat(loss_fn, args):
+    """``loss_fn`` under the QAT view when --qat is set."""
+    if not getattr(args, "qat", False):
+        return loss_fn
+    from hand3d_tpu_torch.ops.quant import qat_view
+
+    def wrapped(params, batch, generator):
+        return loss_fn(qat_view(params), batch, generator)
+
+    return wrapped
+
+
+def add_quantize_arg(p):
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="Post-training int8 quantization of the conv/FC path "
+                        "(ops.quant): measures the quantized EPE beside the "
+                        "f32 numbers.")
+    p.add_argument("--phase-pack", action="store_true",
+                   help="TPU lane packing of conv1_2: out of scope for the "
+                        "port, raises.")
+
+
+def maybe_quantize(params, args):
+    """--quantize int8: the TF-layout tree ``params`` on the CLI's device,
+    quantized there (``ops.quant.quantize_params_int8``), as a torch tree
+    the eval harnesses take as it is; without it, ``params`` unchanged.
+    --phase-pack raises (out of scope)."""
+    if getattr(args, "phase_pack", False):
+        raise NotImplementedError(
+            "--phase-pack is out of scope for the port: it packs conv1_2's "
+            "output phases into the TPU's 128 lanes (ROADMAP.md, out of "
+            "scope this round)")
+    if getattr(args, "quantize", None) != "int8":
+        return params
+    from hand3d_tpu_torch import precision
+    from hand3d_tpu_torch.ops.quant import quantize_params_int8
+    from hand3d_tpu_torch.weights import params_from_jax
+
+    return quantize_params_int8(params_from_jax(
+        params, precision.exact_f32(args.device)))
+
+
 def reject_unported(args):
     """Raise for the training flags the port does not have yet, naming the
     ROADMAP.md item that ports them by its title: nothing is silently
     ignored. A --remat name that is no policy raises here too."""
     from hand3d_tpu_torch.train.trainer import remat_saves
 
-    if args.qat:
-        raise NotImplementedError(
-            "--qat (quantization-aware training) is not ported: ROADMAP.md "
-            "'Still to port', 'Quantization'")
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh is not ported: the port trains on one device "

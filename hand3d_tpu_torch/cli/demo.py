@@ -6,7 +6,8 @@ segmentation argmax, 3D skeleton) per image into <name>_pose.png.
     python -m hand3d_tpu_torch.cli.demo hand.png --weights weights.npz \
         --out-dir figures
 
-Needs matplotlib, imported at run time.
+``--quantize int8`` runs the cascade on the int8 tree (ops.quant). Needs
+matplotlib, imported at run time.
 """
 
 import argparse
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from hand3d_tpu_torch import precision
-from hand3d_tpu_torch.cli._common import init_or_load
+from hand3d_tpu_torch.cli._common import (add_quantize_arg, init_or_load,
+                                          maybe_quantize)
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.utils.viz import plot_hand, plot_hand_3d
@@ -48,22 +50,18 @@ def main(argv=None):
                    help="Treat the hand as a right hand")
     p.add_argument("--seg-scale", type=float, default=1.0,
                    help="<1 = fast localization preset (models.cascade)")
-    p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "'Quantization')")
+    add_quantize_arg(p)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain twins)")
     args = p.parse_args(argv)
-    if args.quantize is not None:
-        raise NotImplementedError(
-            "--quantize is not ported: ROADMAP.md 'Still to port', "
-            "'Quantization'")
 
     device = precision.exact_f32(args.device)
     net = ColorHandPose3D(seg_scale=args.seg_scale)
-    params = params_from_jax(init_or_load(random_params(0), args.weights),
-                             device)
+    params = maybe_quantize(init_or_load(random_params(0), args.weights),
+                            args)
+    if args.quantize is None:
+        params = params_from_jax(params, device)
     hand_side = torch.tensor([[1.0, 0.0]] if args.left else [[0.0, 1.0]],
                              device=device)
 

@@ -9,7 +9,8 @@ corrected, 320x320 frame (--no-wrist, no scaling): 18.741 / 6.745 / 0.635.
         --weights weights.npz --batch-size 16
 """
 
-from hand3d_tpu_torch.cli._common import (base_parser, init_or_load,
+from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+                                          init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.eval.harnesses import eval2d_full_image
@@ -25,11 +26,13 @@ def main(argv=None):
                    action="store_true", default=True)
     p.add_argument("--no-scale-to-size", dest="scale_to_size",
                    action="store_false")
+    add_quantize_arg(p)
     args = p.parse_args(argv)
 
     dataset = RHDDataset("evaluation", path=args.data)
-    params = init_or_load(random_params(args.seed), args.weights,
-                          exclude_var_list=["PosePrior", "ViewpointNet"])
+    params = maybe_quantize(init_or_load(
+        random_params(args.seed), args.weights,
+        exclude_var_list=["PosePrior", "ViewpointNet"]), args)
     metrics = eval2d_full_image(
         params, dataset, args.batch_size, use_wrist_coord=args.wrist,
         scale_to_size=args.scale_to_size, device=args.device,

@@ -10,7 +10,8 @@ mean EPE 9.135 px / median 5.001 px / AUC(0-30px) 0.724; retrained (row 2):
 
 import numpy as np
 
-from hand3d_tpu_torch.cli._common import (base_parser, init_or_load,
+from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+                                          init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.eval.harnesses import eval2d_gt_cropped
@@ -20,13 +21,14 @@ from hand3d_tpu_torch.models import posenet
 def main(argv=None):
     p = base_parser(__doc__)
     p.add_argument("--data", default=None, help="Path to rhd_evaluation.bin")
+    add_quantize_arg(p)
     args = p.parse_args(argv)
 
     dataset = RHDDataset("evaluation", path=args.data)
-    params = init_or_load(
+    params = maybe_quantize(init_or_load(
         {posenet.SCOPE: posenet.init(np.random.default_rng(args.seed))},
         args.weights,
-        exclude_var_list=["PosePrior", "ViewpointNet", "HandSegNet"])
+        exclude_var_list=["PosePrior", "ViewpointNet", "HandSegNet"]), args)
     metrics = eval2d_gt_cropped(
         params[posenet.SCOPE], dataset, args.batch_size, device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))

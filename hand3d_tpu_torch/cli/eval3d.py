@@ -10,7 +10,8 @@ local_w_xyz_loss 21.950 mm, proposed 18.840 mm.
 
 import numpy as np
 
-from hand3d_tpu_torch.cli._common import (base_parser, init_or_load,
+from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+                                          init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.eval.harnesses import (eval3d_from_posenet,
@@ -28,6 +29,7 @@ def main(argv=None):
                    help="lift from PoseNet's PREDICTED scoremaps on GT "
                         "crops instead of GT scoremaps (no reference "
                         "analog; weights must include the PoseNet2D scope)")
+    add_quantize_arg(p)
     args = p.parse_args(argv)
 
     dataset = RHDDataset("evaluation", path=args.data)
@@ -37,11 +39,13 @@ def main(argv=None):
             np.random.default_rng(args.seed))}
         params.update(random_lifting_params(args.variant, args.seed + 1))
         metrics = eval3d_from_posenet(
-            args.variant, init_or_load(params, args.weights), dataset,
-            args.batch_size, device=args.device, progress=progress)
+            args.variant, maybe_quantize(init_or_load(params, args.weights),
+                                         args),
+            dataset, args.batch_size, device=args.device, progress=progress)
     else:
-        params = init_or_load(random_lifting_params(args.variant, args.seed),
-                              args.weights)
+        params = maybe_quantize(init_or_load(
+            random_lifting_params(args.variant, args.seed), args.weights),
+            args)
         metrics = eval3d_lifting(args.variant, params, dataset,
                                  args.batch_size, device=args.device,
                                  progress=progress)

@@ -9,7 +9,8 @@ Figure-9 PCK plot against the published STB baselines (needs matplotlib).
         --weights weights.npz --batch-size 16
 """
 
-from hand3d_tpu_torch.cli._common import (base_parser, init_or_load,
+from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+                                          init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
@@ -44,13 +45,15 @@ def main(argv=None):
     p.add_argument("--dataset", choices=["stb", "rhd"], default="stb")
     p.add_argument("--data", default=None, help="Path to the .bin file")
     p.add_argument("--plot", default=None, help="Write Figure-9 PCK plot here")
+    add_quantize_arg(p)
     args = p.parse_args(argv)
 
     if args.dataset == "stb":
         dataset = STBDataset("evaluation", path=args.data)
     else:
         dataset = RHDDataset("evaluation", path=args.data)
-    params = init_or_load(random_params(args.seed), args.weights)
+    params = maybe_quantize(init_or_load(random_params(args.seed),
+                                         args.weights), args)
     metrics = eval_full_pipeline(
         params, dataset, args.batch_size, device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))

@@ -27,8 +27,8 @@ def main(argv=None):
     p.add_argument("--seg-scale", type=float, default=1.0,
                    help="fast localization preset (models.cascade)")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "'Quantization')")
+                   help="bake in the int8 weights and scales (ops.quant, "
+                        "dynamic activation scales)")
     p.add_argument("--phase-pack", action="store_true",
                    help="out of scope for the port, raises")
     p.add_argument("--device", default="cuda",
@@ -53,7 +53,8 @@ def main(argv=None):
         device=args.device,
     )
     print(f"wrote {args.out}: {len(blob)} bytes, "
-          f"batch={args.batch_size}, input={h}x{w}, device={args.device}")
+          f"batch={args.batch_size}, input={h}x{w}, device={args.device}, "
+          f"quantize={args.quantize}")
 
 
 if __name__ == "__main__":

@@ -154,10 +154,6 @@ def build_estimator(args):
     the estimator accepts any input resolution (snap resize on the device,
     uv mapped back) and exposes the .predict(images, normalized=) contract
     DynamicBatcher can wrap."""
-    if args.quantize is not None:
-        raise NotImplementedError(
-            "--quantize is not ported: ROADMAP.md 'Still to port', "
-            "'Quantization'")
     if args.artifact:
         from hand3d_tpu_torch.export import ExportedEstimator
         from hand3d_tpu_torch.serving import SnapEstimator
@@ -170,7 +166,8 @@ def build_estimator(args):
     est = AutoBucketEstimator(
         load_npz(args.weights), batch_size=args.batch_size,
         snap_hws=[tuple(args.input_hw)], seg_scale=args.seg_scale,
-        compute_dtype=args.compute_dtype, device=args.device)
+        compute_dtype=args.compute_dtype, quantize=args.quantize,
+        device=args.device)
     meta = {"source": "weights", "batch_size": args.batch_size,
             "input_hw": list(args.input_hw), "quantize": args.quantize,
             "seg_scale": args.seg_scale, "compute_dtype": args.compute_dtype,
@@ -189,8 +186,9 @@ def main(argv=None):
     p.add_argument("--input-hw", type=int, nargs=2, default=[240, 320],
                    help="serving bucket; inputs snap to it on the device")
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="not ported, raises (ROADMAP.md 'Still to port', "
-                        "'Quantization')")
+                   help="int8 post-training quantization of --weights "
+                        "(dynamic activation scales, ops.quant; an artifact "
+                        "carries its own)")
     p.add_argument("--seg-scale", type=float, default=1.0)
     p.add_argument("--compute-dtype", default=None,
                    choices=[None, "bfloat16"],

@@ -11,8 +11,8 @@ import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_train_args,
                                           base_parser, fit_options,
-                                          init_or_load, reject_unported, run,
-                                          train_device)
+                                          init_or_load, maybe_qat,
+                                          reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -43,8 +43,9 @@ def setup(argv=None):
     params = params_from_jax(init_or_load(
         {handsegnet.SCOPE: handsegnet.init(np.random.default_rng(args.seed))},
         args.weights), device)
-    train_loss = fuse_preprocess(loss_fn, preprocess_rhd, cfg) \
-        if args.fused else loss_fn
+    train_loss = maybe_qat(loss_fn, args)
+    if args.fused:
+        train_loss = fuse_preprocess(train_loss, preprocess_rhd, cfg)
     return TrainJob(train_loss, params, make_optimizer(args.lr, args.lr_iter),
                     pipeline, args.max_iter,
                     fit_options(args, args.snapshot_dir))

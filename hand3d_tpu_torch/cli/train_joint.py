@@ -19,7 +19,7 @@ import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
-                                          fit_options, init_or_load,
+                                          fit_options, init_or_load, maybe_qat,
                                           reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
@@ -92,8 +92,9 @@ def setup(argv=None):
     rng = np.random.default_rng(args.seed)
     params = {posenet.SCOPE: posenet.init(rng), **prior.init(rng)}
     params = params_from_jax(init_or_load(params, args.weights), device)
-    train_loss = fuse_preprocess(loss_fn, preprocess_rhd, cfg) \
-        if args.fused else loss_fn
+    train_loss = maybe_qat(loss_fn, args)
+    if args.fused:
+        train_loss = fuse_preprocess(train_loss, preprocess_rhd, cfg)
 
     eval_fn = None
     if args.eval_data:

@@ -13,7 +13,7 @@ import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
-                                          fit_options, init_or_load,
+                                          fit_options, init_or_load, maybe_qat,
                                           reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
@@ -53,8 +53,9 @@ def setup(argv=None):
     params = params_from_jax(init_or_load(
         {posenet.SCOPE: posenet.init(np.random.default_rng(args.seed))},
         args.weights), device)
-    train_loss = fuse_preprocess(loss_fn, preprocess_rhd, cfg) \
-        if args.fused else loss_fn
+    train_loss = maybe_qat(loss_fn, args)
+    if args.fused:
+        train_loss = fuse_preprocess(train_loss, preprocess_rhd, cfg)
 
     eval_fn = None
     if args.eval_data:

@@ -8,13 +8,16 @@ JAX package's container around the program:
     b"H3DX"            magic
     u32 little-endian  JSON header length
     JSON header        {"version", "format": "torch.export", "batch_size",
-                        "input_hw", "left_hand", "seg_scale",
+                        "input_hw", "left_hand", "seg_scale", "quantize",
                         "compute_dtype", "device", "torch"}
     payload            torch.export.save bytes of the ExportedProgram
 
 Both hand-written kernels are in the program as the registered ops
 ``torch.ops.hand3d.flood_fill`` and ``torch.ops.hand3d.decode_upsampled``
-(``ops/kernels``). The program maps f32[B, H, W, 3] to the dict of
+(``ops/kernels``). With ``quantize="int8"`` the int8 weights and their
+scales are baked in, and each int8 conv is the registered op
+``torch.ops.hand3d.int8_conv`` (``ops/quant``), which allows TF32 for its
+own call only, as the live estimator does. The program maps f32[B, H, W, 3] to the dict of
 ``serving.HandPoseEstimator.predict``; shapes are static, one artifact per
 (batch, height, width) bucket.
 
@@ -62,21 +65,24 @@ def export_estimator(params, path=None, *, batch_size=16, input_hw=(240, 320),
 
     ``params``: TF-layout param tree (e.g. ``weights.load_npz(...)``).
     ``device``: where the program runs ("cuda": the CUDA kernels; "cpu":
-    their twins); the artifact is loaded there. ``quantize`` and
-    ``phase_pack`` are not ported and raise.
+    their twins); the artifact is loaded there. ``quantize``: None or
+    "int8" (dynamic activation scales, ``serving.prepare_params``), the
+    int8 tree made on ``device``. ``phase_pack`` is out of scope and raises.
 
     Returns the artifact bytes; also writes them to ``path`` if given.
     """
     from hand3d_tpu_torch.models.cascade import (ColorHandPose3D,
                                                  compute_dtype_of)
-    from hand3d_tpu_torch.serving import (device_params, hand_side_tensor,
-                                          prepare_params)
+    from hand3d_tpu_torch.serving import (hand_side_tensor,
+                                          quantized_device_params)
 
-    params = prepare_params(params, quantize, phase_pack)
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     device = precision.exact_f32(device)
     net = ColorHandPose3D(compute_dtype=compute_dtype, seg_scale=seg_scale)
-    module = _Cascade(net, device_params(params, device),
-                      hand_side_tensor(left_hand, batch_size, device))
+    module = _Cascade(net, quantized_device_params(
+        params, device, quantize, phase_pack=phase_pack),
+        hand_side_tensor(left_hand, batch_size, device))
     image = torch.zeros((batch_size, *input_hw, 3), device=device)
     program = torch.export.export(module, (image,))
     payload = io.BytesIO()
@@ -88,6 +94,7 @@ def export_estimator(params, path=None, *, batch_size=16, input_hw=(240, 320),
         "input_hw": [int(x) for x in input_hw],
         "left_hand": bool(left_hand),
         "seg_scale": float(seg_scale),
+        "quantize": quantize,
         "compute_dtype": "bfloat16" if compute_dtype_of(compute_dtype)
         else None,
         "device": str(device),
@@ -125,6 +132,7 @@ class ExportedEstimator:
                              f"supported {ARTIFACT_VERSION}")
         # registers torch.ops.hand3d.*, which the program calls
         import hand3d_tpu_torch.ops.kernels  # noqa: F401
+        import hand3d_tpu_torch.ops.quant  # noqa: F401
 
         # the TF32 flags are process state, not part of the program
         self.device = precision.exact_f32(self.meta["device"])

@@ -13,8 +13,15 @@ products summed in f32, the output f32 and the bias added in f32. That is
 an f32 conv on bf16-rounded operands, not PyTorch's bf16 conv, which rounds
 its output to bf16 too. The initializers are numpy so
 ``weights.random_params`` needs no torch RNG and no jax.
+
+A layer dict in the int8 layout ({"weights_q", ...},
+``ops.quant.quantize_params_int8``) takes the int8 path and ignores
+``compute_dtype``; one in the QAT layout ({"weights_fq", ...},
+``ops.quant.qat_view``) fake-quantizes its weights and input, then runs the
+float path.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -41,6 +48,11 @@ def _same_pads(size, k, s):
     return total // 2, total - total // 2
 
 
+# Activation-range observer of ops.quant.calibrate_act_scales: a callable
+# (x, layer params) while a calibration runs, None otherwise.
+_act_observer = None
+
+
 def rounded(x, compute_dtype):
     """``x`` rounded to ``compute_dtype`` (bf16) and held in f32; ``x`` when
     ``compute_dtype`` is None."""
@@ -54,8 +66,19 @@ def conv2d(x, params, stride=1, compute_dtype=None):
 
     ``compute_dtype=torch.bfloat16``: x and the weights rounded to bf16, the
     conv in f32 with TF32 allowed for this call on the card (exact for such
-    operands, ``precision.tf32_convs``).
+    operands, ``precision.tf32_convs``). int8 and QAT layer dicts: see the
+    module docstring.
     """
+    if _act_observer is not None:
+        _act_observer(x, params)
+    if "weights_q" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        return quant.conv2d_int8(x, params, stride)
+    if "weights_fq" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        x, params = quant.fake_quant_layer(x, params)
     if compute_dtype is None:
         return _conv2d(x, params["weights"], params["biases"], stride)
     with precision.tf32_convs(x.device):
@@ -64,18 +87,69 @@ def conv2d(x, params, stride=1, compute_dtype=None):
                        params["biases"], stride)
 
 
-def _conv2d(x, w, b, stride):
-    kh, kw = w.shape[2:]
+def same_padded(x, kh, kw, stride):
+    """(x, [pad_h, pad_w]) such that ``F.conv2d(x, w, stride=stride,
+    padding=[pad_h, pad_w])`` is the TF-SAME conv of NCHW ``x``: uneven
+    padding (stride-2 layers on even inputs pad one more row / col at the
+    end) is applied to ``x`` here."""
     pt, pb = _same_pads(x.shape[2], kh, stride)
     pl, pr = _same_pads(x.shape[3], kw, stride)
     if pt == pb and pl == pr:
-        return F.conv2d(x, w, b, stride=stride, padding=(pt, pl))
-    # stride-2 layers on even inputs pad one more row/col at the end
-    return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, b, stride=stride)
+        return x, [pt, pl]
+    return F.pad(x, (pl, pr, pt, pb)), [0, 0]
+
+
+def _conv2d(x, w, b, stride):
+    x, padding = same_padded(x, w.shape[2], w.shape[3], stride)
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
 def conv2d_relu(x, params, stride=1, compute_dtype=None):
     return leaky_relu(conv2d(x, params, stride, compute_dtype))
+
+
+def conv2d_transpose(x, params, stride=2, compute_dtype=None):
+    """TF-SAME transposed conv + bias on NCHW ``x`` (general.py:67-84,
+    ``upconv``): ``tf.nn.conv2d_transpose``, the gradient of conv2d with
+    respect to its input, output size ``stride`` times the input's.
+
+    params["weights"] is the reference's [kh, kw, out, in] filter as
+    ``weights.params_from_jax`` converts it, [in, out, kh, kw]: exactly
+    ``F.conv_transpose2d``'s layout, no flip. TF-SAME crops the full
+    transposed conv by the forward conv's leading pad and drops the odd
+    pixel at the end. An int8 layer dict is dequantized first, a QAT one
+    fake-quantizes its weights (not its input), as in the JAX package.
+    """
+    if "weights_q" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        params = {"weights": quant.dequantize_weights(params),
+                  "biases": params["biases"]}
+    elif "weights_fq" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        params = {"weights": quant.fake_quant_weights(params["weights_fq"]),
+                  "biases": params["biases"]}
+    w, b = params["weights"], params["biases"]
+    pads, out_pads = [], []
+    for k, n in zip(w.shape[2:], x.shape[2:]):
+        lead = max(k - stride, 0) // 2
+        pads.append(lead)
+        # where the full conv less the leading pads falls short of n * stride
+        out_pads.append(max(n * stride - ((n - 1) * stride + k - 2 * lead),
+                            0))
+    scope = (precision.tf32_convs(x.device) if compute_dtype is not None
+             else contextlib.nullcontext())
+    with scope:
+        y = F.conv_transpose2d(rounded(x, compute_dtype),
+                               rounded(w, compute_dtype), b, stride=stride,
+                               padding=pads, output_padding=out_pads)
+    return y[:, :, :x.shape[2] * stride, :x.shape[3] * stride]
+
+
+def conv2d_transpose_relu(x, params, stride=2, compute_dtype=None):
+    """upconv_relu (general.py:87-90)."""
+    return leaky_relu(conv2d_transpose(x, params, stride, compute_dtype))
 
 
 def max_pool_2x2(x):
@@ -109,7 +183,18 @@ def dense(x, params, compute_dtype=None):
 
     ``compute_dtype=torch.bfloat16``: x and the weights rounded to bf16, the
     matmul in exact f32 (these layers are small; TF32 stays off for cuBLAS).
+    int8 and QAT layer dicts: see the module docstring.
     """
+    if _act_observer is not None:
+        _act_observer(x, params)
+    if "weights_q" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        return quant.dense_int8(x, params)
+    if "weights_fq" in params:
+        from hand3d_tpu_torch.ops import quant
+
+        x, params = quant.fake_quant_layer(x, params)
     return (torch.matmul(rounded(x, compute_dtype),
                          rounded(params["weights"], compute_dtype))
             + params["biases"])

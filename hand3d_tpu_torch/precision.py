@@ -6,10 +6,11 @@ decimal digits: enough to flip the mask and keypoint argmaxes the parity
 checks rely on. Every entry point that puts parameters on a CUDA device calls
 ``exact_f32`` first. The two flags are process-wide.
 
-The bf16 compute mode is the one exception: a convolution of operands
-rounded to bf16 (8 significant bits) is exact in TF32 (11 bits), so
-``tf32_convs`` lets cuDNN use the tensor cores for exactly those calls and
-restores the flag after each. cuBLAS stays exact f32 throughout.
+Two modes are the exception: a convolution of operands rounded to bf16 (8
+significant bits) or of int8-valued operands (|q| <= 127, 7 bits) is exact
+in TF32 (11 bits), so ``tf32_convs`` lets cuDNN use the tensor cores for
+exactly those calls and restores the flag after each. cuBLAS stays exact
+f32 throughout.
 """
 
 import contextlib
@@ -36,9 +37,10 @@ def exact_f32(device):
 
 def tf32_convs(device):
     """Context in which cuDNN may use TF32 on a CUDA ``device``; the flag is
-    restored on exit. Only for convolutions whose operands are rounded to
-    bf16, where TF32 multiplies exactly and accumulates in f32: the JAX
-    package's bf16 semantics. A no-op on the CPU.
+    restored on exit. Only for convolutions whose operands TF32 holds
+    exactly, where it multiplies exactly and accumulates in f32: operands
+    rounded to bf16 (the JAX package's bf16 semantics) and int8-valued ones
+    (its int8 semantics off the TPU, ``ops.quant``). A no-op on the CPU.
 
     The flag is process-wide, so the card is driven from one thread at a
     time (``serving.DynamicBatcher``, the HTTP server's lock).

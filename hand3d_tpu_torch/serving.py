@@ -1,4 +1,4 @@
-"""Serving API (counterpart of hand3d_tpu/serving.py, float and bf16 paths).
+"""Serving API (counterpart of hand3d_tpu/serving.py: float, bf16 and int8).
 
 ``HandPoseEstimator`` runs the cascade behind one fixed (batch, height,
 width) shape on one device, padding partial batches, numpy in and numpy
@@ -32,35 +32,62 @@ from hand3d_tpu_torch.weights import load_npz, params_from_jax
 
 __all__ = ["AutoBucketEstimator", "DeviceParams", "DynamicBatcher",
            "HandPoseEstimator", "SnapEstimator", "chunked_predict",
-           "normalize_images", "prepare_params", "select_serving_outputs"]
+           "normalize_images", "prepare_params", "quantized_device_params",
+           "select_serving_outputs"]
+
+
+QUANTIZE_MODES = (None, "int8", "int8_static")
 
 
 def prepare_params(params, quantize=None, phase_pack=False,
                    quantize_scope=None, calibration_batches=None,
                    calibrate_fn=None):
-    """The inference-time param transforms of the JAX package, float only:
-    the port serves the float weights as they are and raises for the
-    transforms it does not have."""
-    if quantize is not None or quantize_scope or calibration_batches \
-            is not None or calibrate_fn is not None:
-        raise NotImplementedError(
-            "int8 quantization (quantize, quantize_scope, calibration) is "
-            "not ported: ROADMAP.md 'Still to port', 'Quantization'")
+    """The inference-time param transforms of the JAX package, on a torch
+    tree (``weights.params_from_jax``), shared by the live estimator and
+    the exporter.
+
+    ``quantize``: None, "int8" (``ops.quant.quantize_params_int8``: dynamic
+    per-sample activation scales) or "int8_static" (static per-input-channel
+    scales, calibrated by ``calibrate_fn(params, batch)`` running the float
+    model over ``calibration_batches``). ``quantize_scope``: stage names
+    (case-insensitive, e.g. {"handsegnet"}) that alone are quantized.
+    ``phase_pack`` is out of scope for the port and raises.
+    """
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, got "
+                         f"{quantize!r}")
     if phase_pack:
         raise NotImplementedError(
             "phase_pack is out of scope for the port: it packs conv1_2's "
             "output phases into the TPU's 128 lanes (ROADMAP.md, out of "
             "scope this round)")
-    return params
+    if quantize is None:
+        if quantize_scope:
+            raise ValueError("quantize_scope requires quantize='int8'")
+        return params
+    from hand3d_tpu_torch.ops.quant import (calibrate_act_scales,
+                                            quantize_params_int8)
+
+    act = None
+    if quantize == "int8_static":
+        if calibration_batches is None or calibrate_fn is None:
+            raise ValueError("quantize='int8_static' needs "
+                             "calibration_batches and calibrate_fn")
+        act = calibrate_act_scales(calibrate_fn, params, calibration_batches)
+    return quantize_params_int8(
+        params, scopes=set(quantize_scope) if quantize_scope else None,
+        act_scales=act)
 
 
 class DeviceParams(dict):
     """A param tree converted by ``weights.params_from_jax`` to ``device``,
-    so estimators on that device share it instead of converting again."""
+    so estimators on that device share it instead of converting again;
+    ``quantize`` names the transform applied to it (None: float)."""
 
-    def __init__(self, tree, device):
+    def __init__(self, tree, device, quantize=None):
         super().__init__(tree)
         self.device = device
+        self.quantize = quantize
 
 
 def device_params(params, device):
@@ -71,6 +98,38 @@ def device_params(params, device):
             raise ValueError(f"params live on {params.device}, not {device}")
         return params
     return DeviceParams(params_from_jax(params, device), device)
+
+
+def quantized_device_params(params, device, quantize=None,
+                            quantize_scope=None, calibration_images=None,
+                            left_hand=True, seg_scale=1.0, phase_pack=False):
+    """``params`` on ``device`` with ``prepare_params``' transform applied
+    once there. For "int8_static" the float cascade runs eagerly on the
+    device over ``calibration_images`` ([N, H, W, 3], any dtype
+    ``normalize_images`` takes), as one batch. DeviceParams that already
+    carry a transform are returned as they are when no other is asked for.
+    """
+    params = device_params(params, device)
+    if quantize is None and not quantize_scope and not phase_pack:
+        return params
+    if params.quantize is not None:
+        raise ValueError(f"params are already quantized ({params.quantize})")
+    batches, run = None, None
+    if quantize == "int8_static":
+        if calibration_images is None:
+            raise ValueError("quantize='int8_static' needs calibration_images")
+        images = normalize_images(np.asarray(calibration_images))
+        side = hand_side_tensor(left_hand, len(images), device)
+        net = ColorHandPose3D(seg_scale=seg_scale)
+        batches = [torch.from_numpy(images).to(device)]
+
+        def run(p, batch):
+            return net.inference(p, batch, side, keypoints_scoremap=False)
+    tree = prepare_params(params, quantize, phase_pack, quantize_scope,
+                          calibration_batches=batches, calibrate_fn=run)
+    mode = quantize if not quantize_scope else (
+        f"{quantize} {sorted(quantize_scope)}")
+    return DeviceParams(tree, device, mode)
 
 
 def hand_side_tensor(left_hand, batch_size, device):
@@ -93,8 +152,15 @@ class HandPoseEstimator:
       seg_scale: localization resolution factor in (0, 1].
       device: torch device to run on, e.g. "cuda" or "cpu". On a CUDA device
         the two hand-written kernels run; on the CPU their plain twins.
-      mesh, quantize, phase_pack, quantize_scope, calibration_images: the
-        JAX package's multi-chip and int8 options; not ported, they raise.
+      quantize: None, "int8" or "int8_static" (``prepare_params``): the
+        int8 layers take ``ops.quant``'s path on the device.
+      quantize_scope: stage names that alone are quantized, e.g.
+        {"handsegnet"}.
+      calibration_images: [N, H, W, 3] representative images, required by
+        "int8_static": the float cascade runs on them on the device and its
+        activation ranges set the static scales.
+      mesh, phase_pack: the JAX package's multi-chip serving and TPU lane
+        packing; not ported, they raise.
 
     On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
     the cascade's parity contract is f32. The bf16 mode allows TF32 for its
@@ -110,13 +176,12 @@ class HandPoseEstimator:
                 "mesh (multi-chip serving) is not ported: the port serves "
                 "on one device (ROADMAP.md 'Still to port', 'What "
                 "training left out')")
-        params = prepare_params(
-            params, quantize, phase_pack, quantize_scope,
-            calibration_batches=calibration_images)
         self.device = precision.exact_f32(device)
         self.net = ColorHandPose3D(compute_dtype=compute_dtype,
                                    seg_scale=seg_scale)
-        self.params = device_params(params, self.device)
+        self.params = quantized_device_params(
+            params, self.device, quantize, quantize_scope,
+            calibration_images, left_hand, seg_scale, phase_pack)
         self.batch_size = batch_size
         self.input_hw = tuple(input_hw)
         self.hand_side = hand_side_tensor(left_hand, batch_size, self.device)
@@ -221,17 +286,19 @@ class AutoBucketEstimator:
     remain in the bucket's frame (a scalar crop scale cannot survive an
     anisotropic resize); the ``snap_hw`` output records that frame.
 
-    All other constructor kwargs pass through to HandPoseEstimator.
+    All other constructor kwargs pass through to HandPoseEstimator; the
+    int8 options (``quantize``, ``quantize_scope``, ``calibration_images``)
+    are applied here, once, to the params the buckets share.
     """
 
     def __init__(self, params, batch_size=16, snap_hws=None, max_buckets=8,
-                 *, device, **kwargs):
-        prepare_params(params, kwargs.get("quantize"),
-                       kwargs.get("phase_pack", False),
-                       kwargs.get("quantize_scope"),
-                       kwargs.get("calibration_images"))
+                 *, device, quantize=None, quantize_scope=None,
+                 calibration_images=None, **kwargs):
         self.device = precision.exact_f32(device)
-        self.params = device_params(params, self.device)
+        self.params = quantized_device_params(
+            params, self.device, quantize, quantize_scope,
+            calibration_images, kwargs.get("left_hand", True),
+            kwargs.get("seg_scale", 1.0), kwargs.get("phase_pack", False))
         self.batch_size = batch_size
         self.kwargs = kwargs
         self.snap_hws = [tuple(hw) for hw in snap_hws] if snap_hws else None

@@ -18,11 +18,19 @@ step budgets, drop ratios and eval bounds are the JAX tool's:
 ``--only joint`` therefore runs posenet and lifting first. Training runs
 ``--steps-per-call`` steps a device call (default 50, as the JAX tool:
 replays of one captured CUDA graph over the records held on the device;
-1 is the per-step path). Everything is written into a
-temporary directory that is deleted at the end. The last line of standard
+1 is the per-step path). Everything is written into a temporary directory
+that is deleted at the end, or into ``--keep DIR``, which keeps the records
+and the final snapshots (``snap_<stage>/snapshot-<step>.pt``), e.g. for
+``tools/preset_accuracy.py --overfit-dir DIR``. ``--warm-from DIR`` starts
+handsegnet, posenet and lifting from the newest snapshots of an earlier
+``--keep DIR`` (a fine-tune, so each drop bar becomes the 0.9 divergence
+backstop and the eval bounds judge); ``--qat`` trains every stage under the
+int8 fake-quant view (the trainers' ``--qat``). The last line of standard
 output is one JSON summary; the exit code is 0 when every trainer passed.
 
     python -m hand3d_tpu_torch.tools.overfit_check            # on the card
+    python -m hand3d_tpu_torch.tools.overfit_check --keep /tmp/of
+    python -m hand3d_tpu_torch.tools.overfit_check --qat --warm-from /tmp/of
     python -m hand3d_tpu_torch.tools.overfit_check --only lifting --steps 2 \
         --device cpu                                         # plumbing
 """
@@ -40,9 +48,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 STAGES = ("handsegnet", "posenet", "lifting", "joint")
 
 
-def _trainers(steps, data_dir, work, device, steps_per_call=50):
+def _latest_snapshot(snap_dir):
+    """The newest snapshot-<step>.pt of an earlier run's snapshot dir."""
+    from hand3d_tpu_torch.train.checkpoints import latest_snapshot
+
+    path = latest_snapshot(snap_dir)
+    if path is None:
+        raise SystemExit(f"--warm-from: no snapshot under {snap_dir}")
+    return path
+
+
+def _trainers(steps, data_dir, work, device, steps_per_call=50, qat=False,
+              warm_from=None, run=STAGES):
     """{name: (argv, min drop ratio, (eval key, bound) or None)} in run
-    order; joint reads posenet's and lifting's final snapshots."""
+    order; joint reads posenet's and lifting's final snapshots of this run.
+    ``warm_from``: an earlier ``--keep`` dir whose newest snapshots start
+    the other three stages that ``run`` holds."""
     train_bin = os.path.join(data_dir, "rhd_training.bin")
     eval_bin = os.path.join(data_dir, "rhd_evaluation.bin")
 
@@ -55,7 +76,14 @@ def _trainers(steps, data_dir, work, device, steps_per_call=50):
             "--steps-per-call", str(steps_per_call), "--lr", "1e-4", "1e-4",
             "--lr-iter", "1000000", "--device", device,
             "--snapshot-dir", os.path.join(work, f"snap_{name}"),
-            "--metrics-log", os.path.join(work, f"{name}.jsonl")]
+            "--metrics-log", os.path.join(work, f"{name}.jsonl"),
+            *(["--qat"] if qat else []), *warm(name)]
+
+    def warm(name):
+        if warm_from is None or name == "joint" or name not in run:
+            return []
+        return ["--weights",
+                _latest_snapshot(os.path.join(warm_from, f"snap_{name}"))]
 
     def snapshot(name, n_steps):
         return os.path.join(work, f"snap_{name}", f"snapshot-{n_steps}.pt")
@@ -129,6 +157,17 @@ def main(argv=None):
     ap.add_argument("--steps-per-call", type=int, default=50,
                     help="The trainers' --steps-per-call (1: the per-step "
                          "path)")
+    ap.add_argument("--keep", default=None,
+                    help="Keep the work dir (records and final snapshots) "
+                         "here, e.g. for tools/preset_accuracy.py")
+    ap.add_argument("--warm-from", default=None,
+                    help="An earlier --keep dir: handsegnet, posenet and "
+                         "lifting start from its newest snapshots (e.g. a "
+                         "QAT fine-tune of the float overfit weights); joint "
+                         "always starts from this run's stage snapshots")
+    ap.add_argument("--qat", action="store_true",
+                    help="Train every stage under the int8 fake-quant view "
+                         "(the trainers' --qat)")
     args = ap.parse_args(argv)
 
     from hand3d_tpu_torch.data.synthetic import make_rhd_bin
@@ -138,19 +177,25 @@ def main(argv=None):
         run |= {"posenet", "lifting"}
     results = {}
     t_start = time.time()
-    with tempfile.TemporaryDirectory() as work:
+    with tempfile.TemporaryDirectory() as tmp:
+        work = args.keep or tmp
         data_dir = os.path.join(work, "data")
-        os.makedirs(data_dir)
+        os.makedirs(data_dir, exist_ok=True)
         make_rhd_bin(os.path.join(data_dir, "rhd_training.bin"),
                      num_records=args.records)
         # the same records under the eval name: a memorization EPE
         make_rhd_bin(os.path.join(data_dir, "rhd_evaluation.bin"),
                      num_records=args.records)
         trainers = _trainers(args.steps, data_dir, work, args.device,
-                             args.steps_per_call)
+                             args.steps_per_call, args.qat, args.warm_from,
+                             run)
         for name, (cmd, min_ratio, eval_bound) in trainers.items():
             if name not in run:
                 continue
+            if args.warm_from is not None:
+                # a fine-tune starts converged: the ratio is the divergence
+                # backstop and the eval bounds judge (posenet, joint)
+                min_ratio = min(min_ratio, 0.9)
             n_steps = int(cmd[cmd.index("--max-iter") + 1])
             t0 = time.time()
             try:
@@ -181,6 +226,7 @@ def main(argv=None):
     print(json.dumps({"gate": "overfit_check", "ok": ok, "steps": args.steps,
                       "records": args.records, "device": args.device,
                       "steps_per_call": args.steps_per_call,
+                      "qat": args.qat, "warm_from": args.warm_from,
                       "wall_s": time.time() - t_start,
                       "trainers": results}), flush=True)
     return 0 if ok else 1

@@ -29,22 +29,32 @@ def save_npz(path, tree):
     np.savez(path, **tree_to_flat(tree))
 
 
-def params_from_jax(tree, device):
-    """TF-layout numpy tree -> float32 torch tree on ``device``.
+# float32 leaves of the float, int8 and QAT layer layouts; "weights_q" keeps
+# its int8 dtype. Kernels of 4 dims go HWIO <-> OIHW.
+_FLOAT_KEYS = ("weights", "biases", "weights_fq", "weight_scale", "act_scale",
+               "act_scale_fq")
+_KEYS = _FLOAT_KEYS + ("weights_q",)
 
-    Conv kernels go HWIO -> OIHW; dense kernels stay [in, out]. Layer dicts
-    other than the float {"weights", "biases"} layout (int8, QAT or
-    phase-packed) are not ported and raise.
+
+def params_from_jax(tree, device):
+    """TF-layout numpy tree -> torch tree on ``device``.
+
+    Conv kernels ("weights", "weights_fq", "weights_q") go HWIO -> OIHW;
+    dense kernels stay [in, out]. "weights_q" stays int8, every other leaf
+    (biases, scales) is float32: the int8 and QAT layouts of
+    ``hand3d_tpu.ops.quant`` carry across. Other layer dicts (phase-packed)
+    are out of scope and raise.
     """
     out = {}
     for key, value in tree.items():
         if isinstance(value, dict):
             out[key] = params_from_jax(value, device)
             continue
-        if key not in ("weights", "biases"):
-            raise ValueError(f"unsupported parameter {key!r}: only the float "
-                             "weights/biases layout is ported")
-        arr = np.asarray(value, np.float32)
+        if key not in _KEYS:
+            raise ValueError(f"unsupported parameter {key!r}: the port "
+                             "carries the float, int8 and QAT layouts only")
+        arr = np.asarray(value, np.int8 if key == "weights_q"
+                         else np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         out[key] = torch.tensor(arr, device=device)
@@ -52,14 +62,16 @@ def params_from_jax(tree, device):
 
 
 def params_to_jax(tree):
-    """Torch tree -> TF-layout float32 numpy tree, the inverse of
-    :func:`params_from_jax`: conv kernels go OIHW -> HWIO."""
+    """Torch tree -> TF-layout numpy tree, the inverse of
+    :func:`params_from_jax`: 4-dim kernels go OIHW -> HWIO, "weights_q"
+    stays int8, everything else is float32."""
     out = {}
     for key, value in tree.items():
         if isinstance(value, dict):
             out[key] = params_to_jax(value)
             continue
-        arr = value.detach().cpu().numpy().astype(np.float32)
+        arr = value.detach().cpu().numpy()
+        arr = arr.astype(np.int8 if key == "weights_q" else np.float32)
         out[key] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
     return out
 

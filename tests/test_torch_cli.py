@@ -12,6 +12,7 @@ import pickle
 import sys
 
 import jax
+import numpy as np
 import pytest
 
 from hand3d_tpu.models.cascade import ColorHandPose3D as JaxCascade
@@ -59,6 +60,17 @@ CASES = {
     "eval_full_stb": ("eval_full", ["--weights", "{cascade}", "--dataset",
                                     "stb", "--data", "{stb}", "--plot",
                                     "{plot}"]),
+    # --quantize int8 (after tests/test_cli.py's test_cli_eval3d_quantized):
+    # each int8 layer is bit-equal to JAX's on the same input and the 3D
+    # metrics agree to the printed digits (the 2D ones below need not)
+    "eval3d_local_int8": ("eval3d", ["--weights", "{local}", "--variant",
+                                     "local", "--quantize", "int8"]),
+    "eval3d_from_posenet_int8": ("eval3d", ["--weights", "{cascade}",
+                                            "--from-posenet", "--quantize",
+                                            "int8"]),
+    "eval_full_stb_int8": ("eval_full", ["--weights", "{cascade}",
+                                         "--dataset", "stb", "--data",
+                                         "{stb}", "--quantize", "int8"]),
 }
 
 
@@ -74,6 +86,28 @@ def test_port_cli_prints_the_jax_lines(files, monkeypatch, capsys, case):
     assert got == want
     if "--plot" in argv:  # --plot imports matplotlib only when asked for
         assert any(line.startswith("Wrote ") for line in got)
+
+
+@pytest.mark.parametrize("name, args", [
+    ("eval2d_gt_cropped", []), ("eval2d", ["--no-wrist"])])
+def test_port_2d_clis_run_quantized(files, monkeypatch, capsys, name, args):
+    """--quantize int8 of the 2D evals: the JAX CLI's lines, with EPEs of
+    the int8 PoseNet. With random weights its 32x32 argmaxes sit near ties
+    that one int8 grid step on either side moves (tests/test_torch_quant.py
+    holds the cascade flip-aware), so the 2D metrics are not compared."""
+    argv = ["--weights", files["cascade"], "--data", files["rhd"],
+            "--batch-size", "2", *args]
+    plain = run_cli("hand3d_tpu_torch", name, argv, monkeypatch, capsys)
+    got = run_cli("hand3d_tpu_torch", name, argv + ["--quantize", "int8"],
+                  monkeypatch, capsys)
+    want = run_cli("hand3d_tpu", name, argv + ["--quantize", "int8"],
+                   monkeypatch, capsys)
+    assert len(got) == len(want) and got[:2] == want[:2]
+    for g, w in zip(got[2:], want[2:]):
+        assert g.split(":")[0] == w.split(":")[0]
+        value = float(g.split(":")[1].split()[0])
+        assert np.isfinite(value)
+    assert got != plain  # the quantized PoseNet answers otherwise
 
 
 def test_port_cli_rejects_other_weight_formats(files, tmp_path):

@@ -1,7 +1,8 @@
 """The port's training gates (hand3d_tpu_torch.tools.overfit_check and
-generalization_check) end to end on the CPU at tiny budgets, as
-tests/test_gates.py runs the JAX tools: the tools RUN and report. The
-learning bars themselves are judged by the card runs recorded in PERF.md.
+generalization_check) and the preset-accuracy tool end to end on the CPU at
+tiny budgets, as tests/test_gates.py runs the JAX tools: the tools RUN and
+report. The learning bars themselves are judged by the card runs recorded
+in PERF.md.
 Also: the gates' synthetic data writers against tests/fixtures.py, byte for
 byte, and their CPM checkpoint through both packages' loaders.
 """
@@ -71,6 +72,48 @@ def test_overfit_gate_runs_end_to_end():
     assert entry["loss_first"] > 0 and len(entry["curve"]) == 4
     # 4 steps cannot reach the 4x drop: the gate reports the failure
     assert proc.returncode == (0 if entry["ok"] else 1)
+
+
+def test_overfit_keep_then_qat_warm_start_then_preset_accuracy(tmp_path):
+    """overfit_check --keep DIR leaves its records and final snapshots;
+    --qat --warm-from DIR fine-tunes from them under the fake-quant view
+    (the drop bar becomes the 0.9 backstop); preset_accuracy --overfit-dir
+    DIR reads them and reports every row, the phase-packed ones left out."""
+    keep = str(tmp_path / "of")
+    proc, s = run_tool("overfit_check", "--steps", "2", "--only", "lifting",
+                       "--records", "8", "--keep", keep)
+    assert "error" not in s["trainers"]["lifting"], s
+    snap = os.path.join(keep, "snap_lifting", "snapshot-4.pt")
+    assert os.path.exists(snap)
+    assert os.path.exists(os.path.join(keep, "data", "rhd_training.bin"))
+    proc, s = run_tool("overfit_check", "--steps", "2", "--only", "lifting",
+                       "--records", "8", "--qat", "--warm-from", keep)
+    entry = s["trainers"]["lifting"]
+    assert s["qat"] is True and s["warm_from"] == keep
+    assert "error" not in entry and entry["min_ratio"] == 0.9, entry
+    cmd = overfit_check._trainers(2, "d", "w", "cpu", qat=True,
+                                  warm_from=keep, run={"lifting"})
+    argv = cmd["lifting"][0]
+    assert "--qat" in argv and argv[argv.index("--weights") + 1] == snap
+    assert "--weights" not in cmd["handsegnet"][0]
+
+    doc = tmp_path / "presets.md"
+    proc, s = run_tool("preset_accuracy", "--overfit-dir", keep, "--images",
+                       "2", "--batch", "2", "--write-doc", str(doc))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "overfit weights loaded for scopes: ['PosePrior', " \
+        "'ViewpointNet']" in proc.stderr
+    assert list(s["presets"]) == ["seg_scale=0.5", "bf16", "int8",
+                                  "int8_static", "int8_seg",
+                                  "int8_seg_refiners"]
+    assert set(s["left_out"]) == {"int8_seg_pp", "phase_pack"}
+    assert "int8_seg_pp: left out" in proc.stdout
+    for row in s["presets"].values():
+        assert all(np.isfinite(v) for m in row.values() for v in m.values())
+    # the int8 rows are quantized: they move PoseNet's scoremap
+    assert s["presets"]["int8"]["scoremap_rel_l2"]["max"] > 0
+    table = doc.read_text()
+    assert "| int8_static |" in table and "| int8_seg_pp | left out" in table
 
 
 @pytest.mark.parametrize("name, kw", [

@@ -128,10 +128,13 @@ def test_load_npz_and_layout_conversion(tmp_path):
 
 
 def test_params_from_jax_rejects_unported_layouts():
-    with pytest.raises(ValueError, match="weights_q"):
+    """The phase-packed layout (hand3d_tpu.ops.phasepack) is out of scope;
+    the int8 and QAT layouts carry across (tests/test_torch_quant.py)."""
+    with pytest.raises(ValueError, match="weights_p2"):
         weights.params_from_jax(
-            {"HandSegNet": {"conv1_1": {"weights_q": np.zeros(3, np.int8)}}},
-            "cpu")
+            {"HandSegNet": {"conv1_2": {
+                "weights_p2": np.zeros((3, 4, 64, 128), np.float32),
+                "biases": np.zeros(64, np.float32)}}}, "cpu")
 
 
 @pytest.mark.parametrize("variant", j_poseprior.VARIANTS)

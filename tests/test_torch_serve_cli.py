@@ -212,9 +212,14 @@ def test_build_estimator_from_weights_and_from_an_artifact(params, npz,
     out = est.predict(images)
     np.testing.assert_array_equal(out["snap_hw"], HW)
     assert out["keypoint_uv21"].shape == live["keypoint_uv21"].shape
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        serve.build_estimator(serve_args(
-            ["--weights", str(npz), "--quantize", "int8", *base]))
+    est, meta = serve.build_estimator(serve_args(
+        ["--weights", str(npz), "--quantize", "int8", *base]))
+    assert meta["quantize"] == "int8" and est.params.quantize == "int8"
+    want = serving.AutoBucketEstimator(params, batch_size=1, snap_hws=[HW],
+                                       quantize="int8",
+                                       device="cpu").predict(images)
+    for k, v in est.predict(images).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
 def serve_args(argv):
@@ -315,8 +320,21 @@ def test_demo_writes_the_pose_figure(tmp_path, capsys):
     out = tmp_path / "hand_pose.png"
     assert out.exists() and out.stat().st_size > 10_000
     assert f"Wrote {out}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        demo.main([str(src), "--quantize", "int8", "--device", "cpu"])
+    # --quantize int8: the same figure from the int8 tree, whose int8 convs
+    # and FCs run (46 of its 67 layers)
+    from hand3d_tpu_torch.ops import quant
+
+    calls = []
+    (tmp_path / "q").mkdir()
+    conv = quant.conv2d_int8
+    quant.conv2d_int8 = lambda *a: calls.append(1) or conv(*a)
+    try:
+        demo.main([str(src), "--out-dir", str(tmp_path / "q"), "--device",
+                   "cpu", "--quantize", "int8"])
+    finally:
+        quant.conv2d_int8 = conv
+    assert (tmp_path / "q" / "hand_pose.png").stat().st_size > 10_000
+    assert len(calls) == 41  # the int8 convs; 5 int8 FCs take dense_int8
 
 
 def test_serialized_predicts_run_on_one_device_thread():

@@ -1,6 +1,6 @@
 """The port's serving surface against hand3d_tpu.serving, on the CPU:
 any-resolution estimators (SnapEstimator, AutoBucketEstimator), seg_scale,
-the bf16 compute mode, and DynamicBatcher.
+the int8 and bf16 compute modes, and DynamicBatcher.
 
 Params are the JAX cascade's PRNGKey(0) tree, converted by
 ``weights.params_from_jax``; images are seeded numpy uint8 frames. With
@@ -28,7 +28,7 @@ from hand3d_tpu.models.cascade import ColorHandPose3D as JaxCascade
 from hand3d_tpu.ops import nn as j_nn
 from hand3d_tpu_torch import parity, precision, serving, weights
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
-from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.ops import nn, quant
 
 from test_torch_cascade import (COORD3D_ATOL, FLIP_BOUND, SCOREMAP_ATOL,
                                 _jax_fields, _jax_rerun)
@@ -203,9 +203,6 @@ def test_seg_scale_estimator_matches_jax(jax_params, np_params):
 
 
 @pytest.mark.parametrize("kwargs, queue", [
-    ({"quantize": "int8"}, "Quantization"),
-    ({"quantize_scope": {"handsegnet"}}, "Quantization"),
-    ({"calibration_images": np.zeros((1, 8, 8, 3))}, "Quantization"),
     ({"phase_pack": True}, "out of scope"),
     ({"mesh": object()}, "What training left out")])
 def test_unported_options_raise(np_params, kwargs, queue):
@@ -215,6 +212,87 @@ def test_unported_options_raise(np_params, kwargs, queue):
     if "mesh" not in kwargs:
         with pytest.raises(NotImplementedError, match=queue):
             serving.AutoBucketEstimator(np_params, device="cpu", **kwargs)
+
+
+# --- int8 -------------------------------------------------------------------
+
+QUANTIZE_CASES = {
+    "int8": {"quantize": "int8"},
+    "int8_seg": {"quantize": "int8", "quantize_scope": {"handsegnet"}},
+    "int8_static": {"quantize": "int8_static",
+                    "calibration_images": frames(3, *BUCKET, seed=12)},
+}
+
+
+@pytest.mark.parametrize("case", list(QUANTIZE_CASES))
+def test_quantized_estimators_match_jax(jax_params, np_params, case):
+    """HandPoseEstimator(quantize=..., quantize_scope=...,
+    calibration_images=...) on both sides: the port's int8 tree is JAX's
+    (bit for bit; int8_static's scales, calibrated by each side's own float
+    cascade on the same images, within CALIB_RTOL_OF_MAX of each layer's
+    largest), its cascade is held flip-aware to JAX's at the int8 bounds of
+    tests/test_torch_quant.py, each side serves its own cascade, and
+    AutoBucketEstimator serves the same as the estimator."""
+    from test_torch_quant import (CALIB_RTOL_OF_MAX, INT8_COORD3D_ATOL,
+                                  INT8_FLIP_BOUND, INT8_SCOREMAP_ATOL)
+
+    kwargs = QUANTIZE_CASES[case]
+    images = frames(2, *BUCKET, seed=6)
+    j_est = j_serving.HandPoseEstimator(jax_params, batch_size=2,
+                                        input_hw=BUCKET, **kwargs)
+    est = serving.HandPoseEstimator(np_params, batch_size=2, input_hw=BUCKET,
+                                    device="cpu", **kwargs)
+    assert est.params.quantize is not None
+    want_tree = weights.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, j_est.params), "cpu")
+    n_int8 = 0
+    for path, layer in quant.layer_paths(want_tree).items():
+        got = quant.layer_paths(est.params)[path]
+        assert set(got) == set(layer), path
+        n_int8 += "weights_q" in layer
+        if "act_scale" in layer:
+            s, w = got["act_scale"], layer["act_scale"]
+            assert (s - w).abs().max() <= CALIB_RTOL_OF_MAX * w.max(), path
+            continue
+        for k in layer:
+            assert torch.equal(got[k], layer[k]), (path, k)
+    assert n_int8 == (12 if case == "int8_seg" else 46)
+
+    j_out = j_est.predict(images)
+    t_out = est.predict(images)
+    norm = serving.normalize_images(images)
+    side = left_hands(2)
+    ref = _jax_fields(JaxCascade(), j_est.params, jnp.asarray(norm),
+                      jnp.asarray(side))
+    got = parity.port_fields(est.params, torch.from_numpy(norm),
+                             torch.from_numpy(side))
+    parity.check_cascade(
+        ref, got, _jax_rerun(JaxCascade(), j_est.params, jnp.asarray(norm),
+                             jnp.asarray(side)),
+        scoremap_atol=INT8_SCOREMAP_ATOL, coord3d_atol=INT8_COORD3D_ATOL,
+        flip_bound=INT8_FLIP_BOUND)
+    assert_served(j_out, ref, atol=SERVED_ATOL)
+    assert_served(t_out, got)
+    auto = serving.AutoBucketEstimator(np_params, batch_size=2, device="cpu",
+                                       **kwargs)
+    assert auto.params.quantize == est.params.quantize
+    for k, v in auto.predict(images).items():
+        if k != "snap_hw":
+            np.testing.assert_array_equal(v, t_out[k], err_msg=k)
+
+
+def test_quantize_options_are_checked(np_params):
+    with pytest.raises(ValueError, match="quantize must be one of"):
+        serving.HandPoseEstimator(np_params, device="cpu", quantize="int4")
+    with pytest.raises(ValueError, match="requires quantize"):
+        serving.HandPoseEstimator(np_params, device="cpu",
+                                  quantize_scope={"handsegnet"})
+    with pytest.raises(ValueError, match="needs calibration_images"):
+        serving.HandPoseEstimator(np_params, device="cpu",
+                                  quantize="int8_static")
+    with pytest.raises(ValueError, match="unknown quantize scope"):
+        serving.HandPoseEstimator(np_params, device="cpu", quantize="int8",
+                                  quantize_scope={"posenet3d"})
 
 
 # --- bf16 -------------------------------------------------------------------

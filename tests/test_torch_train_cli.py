@@ -2,8 +2,9 @@
 sizes on the fixture's 320x320 records: they train, print the JAX CLIs'
 lines, snapshot, resume exactly, log the scheduled LR, warm-start from a
 snapshot, run the in-training eval, train device-resident
-(``--steps-per-call``) under a named recompute policy, and refuse the flags
-the port does not have yet.
+(``--steps-per-call``) under a named recompute policy, train under the int8
+fake-quant view (``--qat``), and refuse the flags the port does not have
+yet.
 """
 
 import importlib
@@ -97,7 +98,6 @@ def test_posenet_in_training_eval_and_warm_start(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--qat"], NotImplementedError, "Quantization"),
     (["--mesh", "2x1"], NotImplementedError, "What training left out"),
     (["--steps-per-call", "4", "--no-fused"], ValueError, "yield_raw"),
     (["--remat", "save_only_these_names"], TypeError, "policy factory"),
@@ -108,6 +108,30 @@ def test_unported_flags_raise(data, tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
         main("train_lifting", _argv("train_lifting", data, tmp_path, 1,
                                     *flags))
+
+
+def test_qat_trains_under_the_fake_quant_view(data, tmp_path, capsys,
+                                              monkeypatch):
+    """--qat (tests/test_torch_qat.py has the rest): train_lifting trains
+    through the QAT view, its wide layers fake-quantized, and ends elsewhere
+    than the float run."""
+    from hand3d_tpu_torch.ops import quant
+
+    calls = []
+    fake = quant.fake_quant_layer
+    monkeypatch.setattr(quant, "fake_quant_layer",
+                        lambda *a: calls.append(1) or fake(*a))
+    qat = main("train_lifting", _argv("train_lifting", data, tmp_path / "q",
+                                      2, "--qat"))
+    lines = capsys.readouterr().out.splitlines()
+    assert [int(LOSS_LINE.match(l).group(1)) for l in lines] == [0, 1]
+    # conv_pose_2_2, fc_rel0, fc_rel1 and fc_xyz of the local variant
+    assert len(calls) == 2 * 4
+    monkeypatch.undo()
+    plain = main("train_lifting", _argv("train_lifting", data, tmp_path / "f",
+                                        2))
+    assert any(not torch.equal(a, b) for a, b in zip(
+        trainer.tree_leaves(qat.params), trainer.tree_leaves(plain.params)))
 
 
 def test_remat_and_accumulation_train(data, tmp_path, capsys):
