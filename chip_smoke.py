@@ -4,6 +4,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --mesh-cards N`` runs the device, build and mesh
+phases alone, with one NCCL rank on each of N cards instead of two gloo
+ranks on one.
+
 Phases, in order; any failure raises and exits non-zero before the result
 line is printed:
 
@@ -130,7 +134,23 @@ line is printed:
    kink-aware (the fake quantizers' grid steps that differ counted), 8
    steps per step twice and at --steps-per-call 4, the resident run's step
    0 loss equal to the per-step run's and its params within RESIDENT_SPREAD
-   times the card's own per-step spread.
+   times the card's own per-step spread;
+14. mesh: data parallelism over torch.distributed ranks, in child processes
+   of this script. Two gloo ranks share the card (NCCL refuses two ranks on
+   one GPU): 3 data-parallel train_posenet steps at full width, global
+   batch 8 (4 a rank, fed by the CLI's sharded pipeline), the ranks
+   bit-equal after every step, each step held to one process's step on the
+   gathered global batch at the same params and draws (loss within
+   MESH_LOSS_RTOL, gradients within the TRAIN_* kink-aware bounds), with
+   ms a step and the all-reduce bytes counted; cli.eval_full --mesh 2x1 on
+   a synthetic RHD file, the ranks' metrics equal and held to one
+   process's (equal, or within parity.check_cascade's flip rules where the
+   card's algorithms at 4 rows differ from 8); HandPoseEstimator(mesh=) at
+   batch 8, each rank's answers held to one process's by check_cascade and
+   both kernels held to their twins on each rank's rows. One NCCL rank
+   (torchrun's variables set here): train_posenet --mesh 1x1
+   --deterministic equal to the run without a mesh bit for bit, and ms a
+   mesh step against a plain one.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -138,11 +158,13 @@ kernels line, nvidia-smi's line, and {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import hashlib
 import http.client
 import io
 import json
 import os
 import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -156,8 +178,9 @@ import torch
 import torch.nn.functional as F
 
 from hand3d_tpu_torch import parity, precision, weights
-from hand3d_tpu_torch.cli import (_common, eval2d, train_handsegnet,
-                                  train_joint, train_lifting, train_posenet)
+from hand3d_tpu_torch.cli import (_common, eval2d, eval_full,
+                                  train_handsegnet, train_joint,
+                                  train_lifting, train_posenet)
 from hand3d_tpu_torch.data import augment, codec, native
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import (InputPipeline, epoch_indices,
@@ -172,6 +195,7 @@ from hand3d_tpu_torch.models.poseprior import VARIANTS
 from hand3d_tpu_torch.ops import keypoints, nn, quant, segmentation
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.cli import serve
 from hand3d_tpu_torch.export import export_estimator
 from hand3d_tpu_torch.batching import select_serving_outputs
@@ -363,6 +387,24 @@ INT8_COORD3D_ATOL = 1e-4
 QAT_BATCH = 8
 QAT_STEPS = 8
 QAT_K = 4  # windows 4 + 4
+# mesh: data parallelism over torch.distributed ranks on the one card. Two
+# gloo ranks share cuda:0 (NCCL refuses two ranks on one GPU; gloo runs its
+# collectives on CUDA tensors through the host); one NCCL rank trains
+# through --mesh 1x1. The DP step is held to one process's step on the
+# concatenated global batch (same params, same global draws): the loss
+# within MESH_LOSS_RTOL, the gradients within the TRAIN_* kink-aware bounds
+MESH_CHILD = "--mesh-child"  # one gloo rank
+MESH_NCCL_CHILD = "--mesh-nccl-child"  # the one NCCL rank
+MESH_DEVICE = "cuda:0"  # every rank's device
+MESH_WORLD = 2
+MESH_TRAIN_BATCH = 8  # global: 4 a rank
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_RTOL = 1e-6
+MESH_EVAL_RECORDS = 32
+MESH_EVAL_BATCH = 8  # global: 4 a rank
+MESH_SERVE_BATCH = 8
+MESH_TIMED_STEPS = 5
+MESH_TIMEOUT_S = 300
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -2938,6 +2980,404 @@ def phase_weights(dev, params_np):
     log(json.dumps(line))
     return launches
 
+# --- mesh: data parallelism over ranks ------------------------------------------
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order: what ranks compare to show
+    that they are bit-equal."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def counted_all_reduce():
+    """Count the calls and bytes of torch.distributed.all_reduce."""
+    sent = {"calls": 0, "bytes": 0}
+    base = torch.distributed.all_reduce
+
+    def counting(tensor, *args, **kwargs):
+        sent["calls"] += 1
+        sent["bytes"] += tensor.numel() * tensor.element_size()
+        return base(tensor, *args, **kwargs)
+
+    torch.distributed.all_reduce = counting
+    try:
+        yield sent
+    finally:
+        torch.distributed.all_reduce = base
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_dp_steps(mesh, rank, data, tmp, dev):
+    """MESH_TRAIN_STEPS data-parallel steps of train_posenet at full width,
+    this rank fed its rows of each global batch by the CLI's sharded
+    pipeline. Rank 0 also takes one process's gradients of the gathered
+    global batch at the same params and draws, and holds the DP step to
+    them. Per step: the loss, ms, the all-reduce calls and bytes, a digest
+    of the params after it, the visible keypoints of this rank's rows."""
+    world = mesh_lib.batch_shard_count(mesh)
+    job = train_posenet.setup([
+        "--data", data, "--batch-size", str(MESH_TRAIN_BATCH // world),
+        "--max-iter", str(MESH_TRAIN_STEPS), "--mesh", f"{world}x1",
+        "--device", str(dev), "--snapshot-dir", os.path.join(tmp, f"dp{rank}")])
+    state = trainer.init_state(job.params, job.optimizer)
+    mesh_lib.broadcast_(trainer.tree_leaves(state.params), mesh)
+    grads_of = trainer.DataParallelGrads(job.loss, mesh)
+    paths = trainer.tree_paths(state.params)
+    seed = job.options["seed"]
+    it = job.pipeline.iterate(epochs=None)
+    steps = []
+    try:
+        for i in range(MESH_TRAIN_STEPS):
+            raw = next(it)
+            sync(dev)
+            t0 = time.perf_counter()
+            with counted_all_reduce() as sent:
+                loss, grads = grads_of(state.params, raw, (seed, i))
+            sync(dev)
+            grad_s = time.perf_counter() - t0
+            whole = mesh_lib.gather_rows(raw, mesh)
+            step = {"loss": loss.item(), "vis": int(raw["kp_vis"].sum()),
+                    "allreduce_calls": sent["calls"],
+                    "allreduce_bytes": sent["bytes"]}
+            if rank == 0:
+                ref_loss, ref_grads = trainer.value_and_grad(
+                    job.loss, state.params, whole,
+                    augment.generator(trainer.STEP_STREAM, seed, i))
+                step["single_loss"] = ref_loss.item()
+                step["grad_err_of_max"] = grad_errs(
+                    "posenet", paths, grads, [g.cpu() for g in ref_grads])
+            t0 = time.perf_counter()
+            job.optimizer.apply(state.opt_state, state.params, grads,
+                                state.step)
+            state = state._replace(step=state.step + 1)
+            sync(dev)
+            step["ms"] = (grad_s + time.perf_counter() - t0) * 1e3
+            step["params"] = digest(trainer.tree_leaves(state.params))
+            steps.append(step)
+    finally:
+        it.close()
+    return steps
+
+
+def mesh_eval(mesh, evalfile, dev):
+    """cli.eval_full over the synthetic RHD eval file, with --mesh on a
+    mesh: its printed metrics, its dists and its kernel launches on this
+    rank."""
+    argv = ["--dataset", "rhd", "--data", evalfile, "--batch-size",
+            str(MESH_EVAL_BATCH), "--device", str(dev)]
+    if mesh is not None:
+        argv += ["--mesh", f"{mesh_lib.batch_shard_count(mesh)}x1"]
+    buf = io.StringIO()
+    with recorded_dists() as rows, contextlib.redirect_stdout(buf):
+        zero_counts()
+        eval_full.main(argv)
+        counts = kernel_counts()
+    lines = [l for l in buf.getvalue().splitlines()
+             if l.startswith(("Average", "Area"))]
+    return {"lines": lines, "dists": np.concatenate(rows).tolist(),
+            "launches": counts}
+
+
+def mesh_serve_images():
+    return np.random.default_rng(9).integers(
+        0, 256, (MESH_SERVE_BATCH, H, W, 3), dtype=np.uint8)
+
+
+def mesh_serve(mesh, tmp, rank, dev):
+    """HandPoseEstimator(mesh=) at batch MESH_SERVE_BATCH, H x W: its answers
+    on this rank, the cascade's fields of this rank's rows gathered over the
+    ranks, both kernels held to their twins on those rows."""
+    est = HandPoseEstimator(weights.random_params(0),
+                            batch_size=MESH_SERVE_BATCH, input_hw=(H, W),
+                            mesh=mesh, device=dev)
+    images = mesh_serve_images()
+    zero_counts()
+    served = est.predict(images)
+    sync(dev)
+    counts = kernel_counts()
+    lo, per = est.rows
+    image = torch.from_numpy(normalize_images(images)[lo:lo + per]).to(dev)
+    fields = parity.port_fields(est.params, image, est.hand_side)
+    fields = mesh_lib.gather_rows(
+        {k: torch.from_numpy(v).to(dev) for k, v in fields.items()}, mesh)
+    det, seed, sm = slice_inputs(est.params, image, est.hand_side)
+    err = {}
+    for name, (got, want) in {
+            "flood_fill": (floodfill.flood_fill_cuda(det, seed, NUM_PASSES),
+                           segmentation.flood_fill_torch(det, seed,
+                                                         NUM_PASSES)),
+            "decode_upsampled": (decode.decode_upsampled_cuda(sm, FACTOR),
+                                 keypoints.decode_upsampled_torch(sm, FACTOR))
+            }.items():
+        require(torch.equal(got, want),
+                f"rank {rank}: {name} differs from its twin on its rows")
+        err[name] = (got - want).abs().max().item()
+    np.savez(os.path.join(tmp, f"serve{rank}.npz"),
+             **{f"served_{k}": v for k, v in served.items()},
+             **{f"fields_{k}": v.cpu().numpy() for k, v in fields.items()})
+    return {"launches": counts, "max_abs_err": err}
+
+
+def mesh_child(rank, world, port, tmp, data, evalfile, device, backend):
+    """One rank of phase_mesh (gloo on a shared card, or NCCL on its own):
+    the DP steps, eval_full and the estimator, each on the mesh; the
+    results as the last stdout line."""
+    rank, world = int(rank), int(world)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        require(torch.cuda.is_available(), "no CUDA device")
+        torch.cuda.set_device(dev)
+    precision.exact_f32(dev)
+    mesh_lib.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend=backend, timeout=MESH_TIMEOUT_S)
+    mesh = mesh_lib.make_mesh(world, 1)
+    t0 = time.perf_counter()
+    out = {"dp": mesh_dp_steps(mesh, rank, data, tmp, dev)}
+    out["dp_s"] = time.perf_counter() - t0
+    out["eval"] = mesh_eval(mesh, evalfile, dev)
+    out["serve"] = mesh_serve(mesh, tmp, rank, dev)
+    require_exact_f32()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def mesh_nccl_child(tmp, data):
+    """The one NCCL rank (the launcher's environment set by phase_mesh):
+    train_posenet --deterministic for MESH_TRAIN_STEPS steps without a mesh,
+    then with --mesh 1x1 over NCCL, the two final states compared bit for
+    bit; then ms a step of the mesh step against the plain one on one
+    batch, in turns (plain, mesh, mesh, plain)."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    module, argv = train_argv("posenet", data, tmp, MESH_TRAIN_STEPS,
+                              "--deterministic")
+    states = {}
+    for label, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+        states[label] = module.main(argv + extra + [
+            "--snapshot-dir", os.path.join(tmp, f"nccl_{label}")])
+    backend = torch.distributed.get_backend()
+    require(backend == "nccl", f"--mesh 1x1 ran over {backend}")
+    equal = states_equal(states["plain"], states["mesh"])
+    require(equal, "train_posenet --mesh 1x1 over NCCL differs from the run "
+            "without a mesh (--deterministic)")
+    job = module.setup(argv + ["--mesh", "1x1"])
+    mesh = job.options["mesh"]
+    state = trainer.init_state(job.params, job.optimizer)
+    raw = first_batch(job)
+    steps = {"plain": trainer.make_train_step(job.loss, job.optimizer),
+             "mesh": trainer.make_train_step(job.loss, job.optimizer,
+                                             mesh=mesh)}
+    for fn in steps.values():
+        for i in range(2):
+            state, _ = fn(state, raw, (0, i))
+    ms = {k: [] for k in steps}
+    for k in ("plain", "mesh", "mesh", "plain"):
+        def one():
+            nonlocal state
+            state, _ = steps[k](state, raw, (0, 0))
+        ms[k].append(cuda_ms(one, MESH_TIMED_STEPS))
+    require_exact_f32()
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"bit_equal": equal, "backend": backend,
+                      "ms": {k: float(np.mean(v)) for k, v in ms.items()},
+                      "ms_turns": ms}), flush=True)
+
+
+def run_children(cmds, env=None):
+    """Start every command at once; wait (MESH_TIMEOUT_S) and return each
+    one's last JSON line; a child that fails fails the phase."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MESH_TIMEOUT_S)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rc, out in outs:
+        require(rc == 0, f"a mesh child exited {rc}:\n{out[-4000:]}")
+    # a child's last JSON line (library warnings may follow it on stderr)
+    return [json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+            for _, out in outs]
+
+
+def mesh_eval_held(params_np, evalfile, dev, world):
+    """Where the ranks' dists differ from one process's: per batch, the
+    cascade on each rank's rows (the card's algorithms at that batch) held
+    flip-aware to the cascade on the whole batch; returns the images whose
+    masks differ (rerun), by global index."""
+    dataset = RHDDataset("evaluation", evalfile)
+    params = weights.params_from_jax(params_np, dev)
+    rerun = []
+    for bi, (idx, _) in enumerate(harnesses.eval_batches(
+            len(dataset), MESH_EVAL_BATCH)):
+        data = preprocessed(preprocess_rhd, harnesses.FULL_PIPELINE_CONFIG,
+                            dataset.raw_batch(idx), dev)
+        image = resize_bilinear(data["image"], harnesses.NET_INPUT_HW)
+        side = hand_side_of(data)
+        ref = parity.port_fields(params, image, side)
+        per = MESH_EVAL_BATCH // world
+        parts = [parity.port_fields(params, image[r * per:(r + 1) * per],
+                                    side[r * per:(r + 1) * per])
+                 for r in range(world)]
+        got = {k: np.concatenate([p[k] for p in parts]) for k in ref}
+        summary = parity.check_cascade(
+            ref, got, parity.port_rerun(params, image, side),
+            scoremap_atol=SCOREMAP_ATOL, coord3d_atol=COORD3D_ATOL,
+            flip_bound=FLIP_BOUND)
+        rerun += [bi * MESH_EVAL_BATCH + i for i in summary["images_rerun"]]
+    return rerun
+
+
+def phase_mesh(dev, params_np, smi, cards=1):
+    """(a) DP train steps of train_posenet held to one process's step and
+    the ranks to each other; (b) one NCCL rank: train_posenet --mesh 1x1
+    equal to the run without a mesh; (c) eval_full --mesh on every rank
+    against one process; (d) HandPoseEstimator(mesh=) on every rank against
+    one process. On one card (``cards=1``) MESH_WORLD gloo ranks share it;
+    on ``cards`` > 1 one NCCL rank runs on each card, and (b) is left out."""
+    t_phase = time.perf_counter()
+    world = MESH_WORLD if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    devices = ([MESH_DEVICE] * world if cards == 1
+               else [f"cuda:{r}" for r in range(cards)])
+    line = {"phase": "mesh", "card": smi, "world": world,
+            "backend": backend, "devices": devices}
+    launches = dict.fromkeys(KERNELS, 0)
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(23)
+        data = os.path.join(tmp, "train.bin")
+        evalfile = os.path.join(tmp, "eval.bin")
+        write_rhd_file(data, TRAIN_RECORDS, rng)
+        write_rhd_file(evalfile, MESH_EVAL_RECORDS, rng)
+        port = free_port()
+        t0 = time.perf_counter()
+        ranks = run_children([
+            [sys.executable, me, MESH_CHILD, str(r), str(world), str(port),
+             tmp, data, evalfile, devices[r], backend]
+            for r in range(world)])
+        line["children_s"] = time.perf_counter() - t0
+
+        # (a) the DP steps: ranks in lockstep, held to one process
+        dp = [r["dp"] for r in ranks]
+        for i, steps in enumerate(zip(*dp)):
+            require(len({(s["loss"], s["params"]) for s in steps}) == 1,
+                    f"DP step {i}: the ranks differ")
+            s = steps[0]
+            rel = abs(s["loss"] - s["single_loss"]) / abs(s["single_loss"])
+            e = s["grad_err_of_max"]
+            require(rel <= MESH_LOSS_RTOL
+                    and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+                    and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+                    and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
+                    f"DP step {i} differs from one process's step on the "
+                    f"global batch: loss rel {rel}, gradients {e}")
+            s["loss_rel_err"] = rel
+        require(any(len({s["vis"] for s in steps}) > 1
+                    for steps in zip(*dp)),
+                "the ranks' rows never differed in visible keypoints")
+        line["dp_steps"] = dp[0]
+        line["dp_vis_by_rank"] = [[s["vis"] for s in d] for d in dp]
+        line["dp_ms_per_step_after_first"] = float(np.mean(
+            [s["ms"] for s in dp[0][1:]]))
+        line["dp_allreduce_bytes_per_step"] = dp[0][0]["allreduce_bytes"]
+        line["dp_s"] = ranks[0]["dp_s"]
+
+        # (c) eval_full --mesh 2x1 against one process
+        ev = [r["eval"] for r in ranks]
+        require(all(e["lines"] == ev[0]["lines"]
+                    and e["dists"] == ev[0]["dists"] for e in ev),
+                "the ranks' eval_full metrics differ")
+        for counts in (e["launches"] for e in ev):
+            for name in KERNELS:
+                require(counts[name] > 0, f"a rank's eval never launched "
+                        f"{name}")
+                launches[name] += counts[name]
+        single = mesh_eval(None, evalfile, dev)
+        got, want = np.asarray(ev[0]["dists"]), np.asarray(single["dists"])
+        exact = bool(np.array_equal(got, want))
+        rerun = [] if exact else mesh_eval_held(weights.random_params(0),
+                                                evalfile, dev, world)
+        held = np.ones(len(want), bool)
+        held[rerun] = False
+        err = float(np.abs(got - want)[held].max())
+        require(err <= EVAL_DIST_ATOL, f"eval_full --mesh dists differ from "
+                f"one process's by {err}")
+        require(exact or ev[0]["lines"] == single["lines"] or rerun,
+                "eval_full --mesh metrics differ from one process's with "
+                "no mask flip")
+        line["eval"] = {"lines": ev[0]["lines"], "single": single["lines"],
+                        "exact": exact, "images_rerun": rerun,
+                        "dist_err": err, "launches_by_rank": [
+                            e["launches"] for e in ev]}
+
+        # (d) the estimator on both ranks against one process
+        images = mesh_serve_images()
+        est = HandPoseEstimator(params_np, batch_size=MESH_SERVE_BATCH,
+                                input_hw=(H, W), device=dev)
+        image = torch.from_numpy(normalize_images(images)).to(dev)
+        ref = parity.port_fields(est.params, image, est.hand_side)
+        rerun_fn = parity.port_rerun(est.params, image, est.hand_side)
+        answers = []
+        for r in range(world):
+            z = np.load(os.path.join(tmp, f"serve{r}.npz"))
+            fields = {k[7:]: z[k] for k in z.files if k.startswith("fields_")}
+            served = {k[7:]: z[k] for k in z.files if k.startswith("served_")}
+            summary = parity.check_cascade(
+                ref, fields, rerun_fn, scoremap_atol=SCOREMAP_ATOL,
+                coord3d_atol=COORD3D_ATOL, flip_bound=FLIP_BOUND)
+            for k in ("keypoint_uv21", "keypoint_coord3d", "center",
+                      "scale_crop"):
+                require(np.array_equal(served[k], fields[k]),
+                        f"rank {r}: served {k} differs from its cascade")
+            answers.append(served)
+            counts = ranks[r]["serve"]["launches"]
+            for name in KERNELS:
+                require(counts[name] > 0, f"rank {r}'s estimator never "
+                        f"launched {name}")
+                launches[name] += counts[name]
+            line.setdefault("serve", []).append(summary)
+        for k, v in answers[0].items():
+            require(all(np.array_equal(v, a[k]) for a in answers),
+                    f"the ranks' served {k} differ")
+        line["kernel_vs_twin_by_rank"] = [r["serve"]["max_abs_err"]
+                                          for r in ranks]
+
+        # (b) one NCCL rank: --mesh 1x1 == no mesh, and its step time
+        if cards == 1:
+            env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                       CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            t0 = time.perf_counter()
+            (nccl,) = run_children(
+                [[sys.executable, me, MESH_NCCL_CHILD, tmp, data]], env=env)
+            line["nccl"] = nccl
+            line["nccl_child_s"] = time.perf_counter() - t0
+    require_exact_f32()
+    line["launches"] = launches
+    line["s"] = time.perf_counter() - t_phase
+    log(json.dumps(line))
+    return launches
+
 
 def main():
     t_start = time.perf_counter()
@@ -2965,7 +3405,8 @@ def main():
             ("train", lambda: phase_train(dev)),
             ("train_resident", lambda: phase_train_resident(dev)),
             ("weights", lambda: phase_weights(dev, params_np)),
-            ("quant", lambda: phase_quant(dev, params_np, f32_fps, err))):
+            ("quant", lambda: phase_quant(dev, params_np, f32_fps, err)),
+            ("mesh", lambda: phase_mesh(dev, params_np, smi))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0
@@ -2982,8 +3423,32 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def main_cards(cards):
+    """``chip_smoke.py --mesh-cards N``: the mesh phase alone with one NCCL
+    rank on each of N cards (data parallelism across cards); the rest of
+    the script is the one-card run's."""
+    cards = int(cards)
+    smi = phase_device()
+    require(torch.cuda.device_count() >= cards,
+            f"{torch.cuda.device_count()} cards, {cards} asked for")
+    dev = torch.device("cuda", 0)
+    precision.exact_f32(dev)
+    phase_build()
+    phase_mesh(dev, weights.random_params(0), smi, cards)
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == [RESUME_CHILD]:
+    if sys.argv[1:2] == ["--mesh-cards"]:
+        main_cards(*sys.argv[2:])
+    elif sys.argv[1:2] == [RESUME_CHILD]:
         train_resume_child(*sys.argv[2:])
+    elif sys.argv[1:2] == [MESH_CHILD]:
+        mesh_child(*sys.argv[2:])
+    elif sys.argv[1:2] == [MESH_NCCL_CHILD]:
+        mesh_nccl_child(*sys.argv[2:])
     else:
         main()

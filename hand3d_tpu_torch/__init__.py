@@ -26,7 +26,9 @@ Package layout:
   data/        RHD / STB record codecs and readers, on-device preprocessing
   eval/        EPE / PCK / AUC metrics and the five eval harnesses
   train/       losses, Adam on the reference schedule, snapshots, fit loop
-  utils/       metrics logging, hand skeleton plots (viz)
+  parallel/    data parallelism over torch.distributed ranks (the mesh)
+  utils/       metrics logging, hand skeleton plots (viz), NaN checks,
+               profiling
   cli/         eval2d_gt_cropped, eval2d, eval3d, eval_full, the four
                train_* trainers, serve (HTTP), export_model, demo
   batching.py  the predict() contract: normalize, chunk and pad

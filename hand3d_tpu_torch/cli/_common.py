@@ -135,11 +135,73 @@ def add_train_args(p, max_iter, lr, lr_iter, snapshot_dir):
                         "on the card a run stopped and --resume'd then "
                         "equals the uninterrupted run bit for bit (as on "
                         "the CPU always)")
-    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="Device mesh: not ported, raises (ROADMAP.md 'Still "
-                        "to port', 'What training left out').")
+    add_mesh_arg(p)
     add_memory_args(p)
     return p
+
+
+def add_mesh_arg(p):
+    """--mesh: data parallelism over torch.distributed ranks (launch one
+    process per device with torchrun)."""
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="Device mesh, e.g. '8x1' (data-parallel over 8 "
+                        "chips) or '4x2' (DP x tensor-parallel). 'auto' = "
+                        "all devices data-parallel. Default: single device. "
+                        "In the port a device is a torch.distributed rank "
+                        "(torchrun --nproc-per-node N ... --mesh Nx1); the "
+                        "'model' axis is out of scope and raises.")
+    return p
+
+
+def build_mesh(spec, device="cpu"):
+    """'auto' | 'NxM' -> ``parallel.make_mesh`` (None: no mesh).
+
+    Under a launcher (torchrun's environment) torch.distributed is brought
+    up first (``init_distributed(auto=True)``): gloo for a CPU ``device``,
+    else its default (NCCL, or gloo where ranks share a card).
+    """
+    if spec is None:
+        return None
+    import torch
+    import torch.distributed as dist
+
+    from hand3d_tpu_torch.parallel import mesh as mesh_lib
+
+    if mesh_lib.launched() and not dist.is_initialized():
+        mesh_lib.init_distributed(
+            auto=True,
+            backend="gloo" if torch.device(device).type == "cpu" else None)
+    if spec == "auto":
+        return mesh_lib.make_mesh()
+    n_data, n_model = (int(x) for x in spec.lower().split("x"))
+    return mesh_lib.make_mesh(n_data, n_model)
+
+
+def eval_mesh(args):
+    """The mesh of an eval CLI's --mesh (None without it), with
+    ``args.device`` set to this rank's device first."""
+    args.device = mesh_device(args)
+    return build_mesh(args.mesh, args.device)
+
+
+def global_batch(args, mesh):
+    """A trainer's batch over all ranks: --batch-size is per process in
+    training (as in the JAX package) and global in eval."""
+    if mesh is None:
+        return args.batch_size
+    from hand3d_tpu_torch.parallel.mesh import batch_shard_count
+
+    return args.batch_size * batch_shard_count(mesh)
+
+
+def mesh_device(args):
+    """The CLI's device: under --mesh, this rank's (``parallel.rank_device``:
+    "cuda" is the card of LOCAL_RANK)."""
+    if args.mesh is None:
+        return args.device
+    from hand3d_tpu_torch.parallel.mesh import rank_device
+
+    return rank_device(args.device)
 
 
 def add_show_loss_arg(p):
@@ -225,15 +287,16 @@ def maybe_quantize(params, args):
 
 
 def reject_unported(args):
-    """Raise for the training flags the port does not have yet, naming the
-    ROADMAP.md item that ports them by its title: nothing is silently
-    ignored. A --remat name that is no policy raises here too."""
+    """Raise early for training flags that cannot run together, before any
+    device or mesh is set up: --steps-per-call K > 1 with --mesh (fit's
+    error, as in the JAX package) and a --remat name that is no policy."""
     from hand3d_tpu_torch.train.trainer import remat_saves
 
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh is not ported: the port trains on one device "
-            "(ROADMAP.md 'Still to port', 'What training left out')")
+    if args.mesh is not None and args.steps_per_call > 1:
+        raise ValueError(
+            "steps_per_call > 1 does not compose with a mesh yet: the "
+            "resident dataset would need per-shard index streams; run "
+            "multi-step training single-device")
     remat_saves(args.remat)
 
 
@@ -243,7 +306,8 @@ def train_device(args):
     With --deterministic every cuDNN, cuBLAS and torch algorithm is the
     deterministic one. cuBLAS reads CUBLAS_WORKSPACE_CONFIG when it starts,
     so the setting is made before the process's first CUDA work, or the
-    caller must have made it.
+    caller must have made it. Under --mesh the device is this rank's
+    (``mesh_device``).
     """
     import torch
 
@@ -259,7 +323,7 @@ def train_device(args):
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
         torch.use_deterministic_algorithms(True)
         torch.backends.cudnn.deterministic = True
-    return precision.exact_f32(args.device)
+    return precision.exact_f32(mesh_device(args))
 
 
 def _metrics_logger(args):
@@ -271,7 +335,9 @@ def _metrics_logger(args):
     scheduled LR (train.schedule.piecewise_constant), direct evidence of the
     LR boundaries crossed.
     """
-    if not args.metrics_log:
+    from hand3d_tpu_torch.parallel.mesh import process_index
+
+    if not args.metrics_log or process_index() != 0:  # rank 0 writes it
         return None
     from hand3d_tpu_torch.train.schedule import piecewise_constant
     from hand3d_tpu_torch.utils.logging import MetricsLogger
@@ -315,9 +381,10 @@ class TrainJob(NamedTuple):
     options: dict
 
 
-def fit_options(args, snapshot_dir, eval_fn=None):
+def fit_options(args, snapshot_dir, eval_fn=None, mesh=None):
     """fit's keyword options from the shared training flags."""
     return dict(seed=args.seed, show_loss_freq=args.show_loss_freq,
+                mesh=mesh,
                 snapshot_dir=snapshot_dir, snapshot_freq=args.snapshot_freq,
                 resume=args.resume, step_timeout=args.step_timeout,
                 remat=args.remat, accum_steps=args.accum_steps,

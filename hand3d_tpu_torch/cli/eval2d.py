@@ -9,7 +9,8 @@ corrected, 320x320 frame (--no-wrist, no scaling): 18.741 / 6.745 / 0.635.
         --weights weights.npz --batch-size 16
 """
 
-from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+from hand3d_tpu_torch.cli._common import (add_mesh_arg, add_quantize_arg,
+                                          base_parser, eval_mesh,
                                           init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
@@ -27,7 +28,9 @@ def main(argv=None):
     p.add_argument("--no-scale-to-size", dest="scale_to_size",
                    action="store_false")
     add_quantize_arg(p)
+    add_mesh_arg(p)
     args = p.parse_args(argv)
+    mesh = eval_mesh(args)
 
     dataset = RHDDataset("evaluation", path=args.data)
     params = maybe_quantize(init_or_load(
@@ -35,7 +38,7 @@ def main(argv=None):
         exclude_var_list=["PosePrior", "ViewpointNet"]), args)
     metrics = eval2d_full_image(
         params, dataset, args.batch_size, use_wrist_coord=args.wrist,
-        scale_to_size=args.scale_to_size, device=args.device,
+        scale_to_size=args.scale_to_size, mesh=mesh, device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))
     print("Evaluation results:")
     print("Average mean EPE: %.3f pixels" % metrics["epe_mean_px"])

@@ -10,7 +10,8 @@ mean EPE 9.135 px / median 5.001 px / AUC(0-30px) 0.724; retrained (row 2):
 
 import numpy as np
 
-from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+from hand3d_tpu_torch.cli._common import (add_mesh_arg, add_quantize_arg,
+                                          base_parser, eval_mesh,
                                           init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
@@ -22,7 +23,9 @@ def main(argv=None):
     p = base_parser(__doc__)
     p.add_argument("--data", default=None, help="Path to rhd_evaluation.bin")
     add_quantize_arg(p)
+    add_mesh_arg(p)
     args = p.parse_args(argv)
+    mesh = eval_mesh(args)
 
     dataset = RHDDataset("evaluation", path=args.data)
     params = maybe_quantize(init_or_load(
@@ -30,7 +33,8 @@ def main(argv=None):
         args.weights,
         exclude_var_list=["PosePrior", "ViewpointNet", "HandSegNet"]), args)
     metrics = eval2d_gt_cropped(
-        params[posenet.SCOPE], dataset, args.batch_size, device=args.device,
+        params[posenet.SCOPE], dataset, args.batch_size, mesh=mesh,
+        device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))
     print("Evaluation results:")
     print("Average mean EPE: %.3f pixels" % metrics["epe_mean_px"])

@@ -10,7 +10,8 @@ local_w_xyz_loss 21.950 mm, proposed 18.840 mm.
 
 import numpy as np
 
-from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+from hand3d_tpu_torch.cli._common import (add_mesh_arg, add_quantize_arg,
+                                          base_parser, eval_mesh,
                                           init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
@@ -30,7 +31,9 @@ def main(argv=None):
                         "crops instead of GT scoremaps (no reference "
                         "analog; weights must include the PoseNet2D scope)")
     add_quantize_arg(p)
+    add_mesh_arg(p)
     args = p.parse_args(argv)
+    mesh = eval_mesh(args)
 
     dataset = RHDDataset("evaluation", path=args.data)
     progress = progress_printer(len(dataset), args.batch_size)
@@ -41,14 +44,15 @@ def main(argv=None):
         metrics = eval3d_from_posenet(
             args.variant, maybe_quantize(init_or_load(params, args.weights),
                                          args),
-            dataset, args.batch_size, device=args.device, progress=progress)
+            dataset, args.batch_size, mesh=mesh, device=args.device,
+            progress=progress)
     else:
         params = maybe_quantize(init_or_load(
             random_lifting_params(args.variant, args.seed), args.weights),
             args)
         metrics = eval3d_lifting(args.variant, params, dataset,
-                                 args.batch_size, device=args.device,
-                                 progress=progress)
+                                 args.batch_size, mesh=mesh,
+                                 device=args.device, progress=progress)
     print("Evaluation results for %s:" % args.variant)
     print("Average mean EPE: %.3f mm" % metrics["epe_mean_mm"])
     print("Average median EPE: %.3f mm" % metrics["epe_median_mm"])

@@ -9,7 +9,8 @@ Figure-9 PCK plot against the published STB baselines (needs matplotlib).
         --weights weights.npz --batch-size 16
 """
 
-from hand3d_tpu_torch.cli._common import (add_quantize_arg, base_parser,
+from hand3d_tpu_torch.cli._common import (add_mesh_arg, add_quantize_arg,
+                                          base_parser, eval_mesh,
                                           init_or_load, maybe_quantize,
                                           progress_printer)
 from hand3d_tpu_torch.data.rhd import RHDDataset
@@ -46,7 +47,9 @@ def main(argv=None):
     p.add_argument("--data", default=None, help="Path to the .bin file")
     p.add_argument("--plot", default=None, help="Write Figure-9 PCK plot here")
     add_quantize_arg(p)
+    add_mesh_arg(p)
     args = p.parse_args(argv)
+    mesh = eval_mesh(args)
 
     if args.dataset == "stb":
         dataset = STBDataset("evaluation", path=args.data)
@@ -55,7 +58,7 @@ def main(argv=None):
     params = maybe_quantize(init_or_load(random_params(args.seed),
                                          args.weights), args)
     metrics = eval_full_pipeline(
-        params, dataset, args.batch_size, device=args.device,
+        params, dataset, args.batch_size, mesh=mesh, device=args.device,
         progress=progress_printer(len(dataset), args.batch_size))
     print("Evaluation results")
     print("Average mean EPE: %.3f mm" % metrics["epe_mean_mm"])

@@ -10,7 +10,7 @@ Reference hyperparameters (training_handsegnet.py:29-39): batch 8, Adam, LR
 import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_train_args,
-                                          base_parser, fit_options,
+                                          base_parser, build_mesh, fit_options,
                                           init_or_load, maybe_qat,
                                           reject_unported, run, train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
@@ -35,11 +35,12 @@ def setup(argv=None):
     args = p.parse_args(argv)
     reject_unported(args)
     device = train_device(args)
+    mesh = build_mesh(args.mesh, device)
 
     dataset = RHDDataset("training", path=args.data)
     cfg = PreprocessConfig(hue_aug=True, random_crop_to_size=True)
     pipeline = InputPipeline(dataset, cfg, args.batch_size, seed=args.seed,
-                             yield_raw=args.fused, device=device)
+                             yield_raw=args.fused, mesh=mesh, device=device)
     params = params_from_jax(init_or_load(
         {handsegnet.SCOPE: handsegnet.init(np.random.default_rng(args.seed))},
         args.weights), device)
@@ -48,7 +49,7 @@ def setup(argv=None):
         train_loss = fuse_preprocess(train_loss, preprocess_rhd, cfg)
     return TrainJob(train_loss, params, make_optimizer(args.lr, args.lr_iter),
                     pipeline, args.max_iter,
-                    fit_options(args, args.snapshot_dir))
+                    fit_options(args, args.snapshot_dir, mesh=mesh))
 
 
 def main(argv=None):

@@ -13,8 +13,10 @@ import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
-                                          fit_options, init_or_load, maybe_qat,
-                                          reject_unported, run, train_device)
+                                          build_mesh, fit_options,
+                                          global_batch, init_or_load,
+                                          maybe_qat, reject_unported, run,
+                                          train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -53,6 +55,7 @@ def setup(argv=None):
     args = p.parse_args(argv)
     reject_unported(args)
     device = train_device(args)
+    mesh = build_mesh(args.mesh, device)
     snapshot_dir = args.snapshot_dir or f"snapshots_lifting_{args.variant}"
 
     dataset = RHDDataset("training", path=args.data)
@@ -60,7 +63,7 @@ def setup(argv=None):
                            coord_uv_noise=True, crop_center_noise=True,
                            crop_offset_noise=True, crop_scale_noise=True)
     pipeline = InputPipeline(dataset, cfg, args.batch_size, seed=args.seed,
-                             yield_raw=args.fused, device=device)
+                             yield_raw=args.fused, mesh=mesh, device=device)
     loss_fn, net = make_loss(args.variant, args.dropout)
     params = params_from_jax(init_or_load(
         net.init(np.random.default_rng(args.seed)), args.weights), device)
@@ -77,14 +80,14 @@ def setup(argv=None):
         def eval_fn(state, step):
             m = eval3d_lifting(
                 args.variant, state.params, eval_dataset,
-                batch_size=args.batch_size, max_batches=args.eval_batches,
-                device=device)
+                batch_size=global_batch(args, mesh),
+                max_batches=args.eval_batches, mesh=mesh, device=device)
             return {k: m[k] for k in
                     ("epe_mean_mm", "epe_median_mm", "auc_0_50mm")}
 
     return TrainJob(train_loss, params, make_optimizer(args.lr, args.lr_iter),
                     pipeline, args.max_iter,
-                    fit_options(args, snapshot_dir, eval_fn))
+                    fit_options(args, snapshot_dir, eval_fn, mesh=mesh))
 
 
 def main(argv=None):

@@ -13,8 +13,10 @@ import numpy as np
 
 from hand3d_tpu_torch.cli._common import (TrainJob, add_eval_args,
                                           add_train_args, base_parser,
-                                          fit_options, init_or_load, maybe_qat,
-                                          reject_unported, run, train_device)
+                                          build_mesh, fit_options,
+                                          global_batch, init_or_load,
+                                          maybe_qat, reject_unported, run,
+                                          train_device)
 from hand3d_tpu_torch.data.config import PreprocessConfig
 from hand3d_tpu_torch.data.pipeline import InputPipeline
 from hand3d_tpu_torch.data.preprocess import preprocess_rhd
@@ -43,13 +45,14 @@ def setup(argv=None):
     args = p.parse_args(argv)
     reject_unported(args)
     device = train_device(args)
+    mesh = build_mesh(args.mesh, device)
 
     dataset = RHDDataset("training", path=args.data)
     cfg = PreprocessConfig(use_wrist_coord=False, hand_crop=True,
                            coord_uv_noise=True, crop_center_noise=True,
                            crop_size=args.crop_size)
     pipeline = InputPipeline(dataset, cfg, args.batch_size, seed=args.seed,
-                             yield_raw=args.fused, device=device)
+                             yield_raw=args.fused, mesh=mesh, device=device)
     params = params_from_jax(init_or_load(
         {posenet.SCOPE: posenet.init(np.random.default_rng(args.seed))},
         args.weights), device)
@@ -67,14 +70,15 @@ def setup(argv=None):
             # the training tree, on the device as it is
             m = eval2d_gt_cropped(
                 state.params[posenet.SCOPE], eval_dataset,
-                batch_size=args.batch_size, max_batches=args.eval_batches,
-                device=device)
+                batch_size=global_batch(args, mesh),
+                max_batches=args.eval_batches, mesh=mesh, device=device)
             return {k: m[k] for k in
                     ("epe_mean_px", "epe_median_px", "auc_0_30px")}
 
     return TrainJob(train_loss, params, make_optimizer(args.lr, args.lr_iter),
                     pipeline, args.max_iter,
-                    fit_options(args, args.snapshot_dir, eval_fn))
+                    fit_options(args, args.snapshot_dir, eval_fn,
+                                mesh=mesh))
 
 
 def main(argv=None):

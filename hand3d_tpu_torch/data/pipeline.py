@@ -7,7 +7,14 @@ bounded queue; the consumer copies them to the device and, unless it yields
 raw records, preprocesses them there. Queue depth 2 overlaps host IO with
 device compute. Every epoch is reshuffled, in the JAX package's order
 exactly; the augmentation draws come from one CPU generator per (seed,
-epoch, step). One process reads the whole dataset (no ``process_shard``).
+epoch, step).
+
+Under torch.distributed each process reads its own shard of every epoch
+(``process_shard``) and ``batch_size`` is the batch of each process, as in
+the JAX package; the global batch of a step is the ranks' batches in rank
+order. Its augmentation draws are made for the global batch, and each rank
+keeps its rows (``draws.Rows``): the data a step sees does not depend on the
+number of ranks.
 
 ``use_native=True`` reads a fresh iteration through the C++ record streamer
 (``data/native.py``, native/recordio.cpp): its threads pread, shuffle and
@@ -27,6 +34,8 @@ from hand3d_tpu_torch.data import augment
 from hand3d_tpu_torch.data.preprocess import (draw_noise, preprocess_rhd,
                                               preprocess_stb)
 from hand3d_tpu_torch.data.rhd import RHDDataset
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
+from hand3d_tpu_torch.train.draws import Rows
 
 # first word of the pipeline's generators, apart from the train step's
 DATA_STREAM = 0
@@ -99,18 +108,24 @@ class InputPipeline:
     Args:
       dataset: RHDDataset or STBDataset.
       cfg: PreprocessConfig (selects derived features and augmentations).
-      batch_size: per-step batch.
+      batch_size: per-step batch of this process.
       seed: shuffle and augmentation seed.
       yield_raw: yield the raw record tensors on the device, for train steps
         that preprocess inside the loss (``train.trainer.fuse_preprocess``).
       use_native: read a fresh iteration through the C++ record streamer
         (``data.native``); raises ``native.NativeUnavailable`` where its
         library cannot be built or opened.
+      process_shard: (index, count) of this process's shard of every epoch.
+        None takes (rank, world size) from torch.distributed; with more than
+        one process a ``mesh`` must then be given (synchronized
+        data-parallel training), as the JAX package asks for a sharding.
+      mesh: the data-parallel mesh (``parallel.make_mesh``) the batches
+        feed.
       device: where the batches go.
     """
 
     def __init__(self, dataset, cfg, batch_size, seed=0, yield_raw=False,
-                 use_native=False, *, device):
+                 use_native=False, process_shard=None, mesh=None, *, device):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -118,6 +133,21 @@ class InputPipeline:
         self.yield_raw = yield_raw
         self.use_native = use_native
         self.device = torch.device(device)
+        if process_shard is None:
+            process_shard = (mesh_lib.process_index(),
+                             mesh_lib.process_count())
+            if process_shard[1] > 1 and mesh is None:
+                # per-process shards without a synchronized step would
+                # silently train n independent models on 1/n of the data
+                raise ValueError(
+                    f"{process_shard[1]} torch.distributed processes but no "
+                    "``mesh``: pass the data-parallel mesh (global batches, "
+                    "synchronized DP training) or an explicit process_shard "
+                    "to opt into independent per-process iteration")
+        pidx, pcount = process_shard
+        if not 0 <= pidx < pcount:
+            raise ValueError(f"process_shard {process_shard}")
+        self.process_shard = (int(pidx), int(pcount))
         self._preprocess = (preprocess_rhd if isinstance(dataset, RHDDataset)
                             else preprocess_stb)
 
@@ -127,15 +157,25 @@ class InputPipeline:
         noise = None
         if self.cfg.needs_rng:
             gen = augment.generator(DATA_STREAM, self.seed, epoch, step)
+            pidx, pcount = self.process_shard
+            b = self.batch_size
+            if pcount > 1:  # the global batch's draws, this shard's rows
+                gen = Rows(gen, b * pcount, pidx * b, b)
             noise = draw_noise(self.cfg, raw, gen)
         return self._preprocess(self.cfg, raw, noise)
 
+    def _shard_len(self):
+        # every shard is cut to the same length (epoch_indices), so all
+        # processes run the same number of steps an epoch
+        return len(self.dataset) // self.process_shard[1]
+
     def steps_per_epoch(self):
-        steps = len(self.dataset) // self.batch_size
+        steps = self._shard_len() // self.batch_size
         if steps == 0:
             raise ValueError(
-                f"batch_size {self.batch_size} exceeds the dataset "
-                f"({len(self.dataset)} records): every epoch would yield "
+                f"batch_size {self.batch_size} exceeds this process's "
+                f"dataset shard ({self._shard_len()} of "
+                f"{len(self.dataset)} records): every epoch would yield "
                 "zero batches")
         return steps
 
@@ -154,10 +194,12 @@ class InputPipeline:
             raise ValueError(f"skip_steps {skip_steps} outside an epoch of "
                              f"{spe} steps (fold whole epochs into "
                              "start_epoch)")
-        if self.use_native and start_epoch == 0 and skip_steps == 0:
+        if (self.use_native and start_epoch == 0 and skip_steps == 0
+                and self.process_shard[1] == 1):
             # the streamer owns its shuffle state and cannot start at a
-            # later epoch's order: a resumed iteration takes the threaded
-            # path below, which does
+            # later epoch's order, and its order is unsharded: a resumed or
+            # sharded iteration takes the threaded path below, which follows
+            # both
             yield from self._iterate_native(epochs, spe)
             return
         q = queue.Queue(maxsize=PREFETCH)
@@ -168,9 +210,9 @@ class InputPipeline:
                 epoch = start_epoch
                 while not stop.is_set() and (
                         epochs is None or epoch < start_epoch + epochs):
-                    batches = epoch_indices(len(self.dataset),
-                                            self.batch_size, True,
-                                            self.seed + epoch)
+                    batches = epoch_indices(
+                        len(self.dataset), self.batch_size, True,
+                        self.seed + epoch, process_shard=self.process_shard)
                     first = skip_steps if epoch == start_epoch else 0
                     for step in range(first, len(batches)):
                         if stop.is_set():

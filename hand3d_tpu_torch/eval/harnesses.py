@@ -16,6 +16,11 @@ training run's), and an explicit ``device``; on a CUDA device the
 cascade's two kernels run, and TF32 is turned off first
 (``precision.exact_f32``). Each returns a dict of metrics; the reference's
 values are in BASELINE.md rows 1-13.
+
+``mesh=`` (``parallel.make_mesh``) spreads each batch over the ranks: every
+rank walks the same global batch list, uploads and runs only its rows, and
+the outputs are all-gathered before the metrics, so every rank reports the
+same numbers. ``batch_size`` is the global batch, as in the JAX package.
 """
 
 import collections
@@ -37,6 +42,7 @@ from hand3d_tpu_torch.models.cascade import CROP_SIZE, ColorHandPose3D
 from hand3d_tpu_torch.models.poseprior import SCOREMAP_SIZE, PosePriorNetwork
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.keypoints import decode_upsampled
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.weights import params_from_jax
 
 NET_INPUT_HW = (240, 320)  # eval2d.py:53, eval_full.py:50
@@ -86,14 +92,27 @@ class _ProducerError:
 
 
 def _run(dataset, cfg, batch_size, step, params, util_feed, device,
-         progress=None, window=3, max_batches=None):
+         progress=None, window=3, max_batches=None, mesh=None):
     """Stream the dataset through ``step(params, data)``.
 
     Records are sliced (and pinned) on a background thread. Up to ``window``
     batches are launched before the oldest is fetched with ``.cpu()``, so the
     device works on batch i while the host slices and uploads batch i + 1.
+
+    With a ``mesh`` of more than one rank, every rank walks the same global
+    batch list and slices its rows ``[lo, lo + per)`` on the host before
+    any upload; the step's outputs are all-gathered, so every rank feeds the
+    whole batch to the metrics.
     """
     pre = _preprocess_fn(dataset)
+    lo, per = 0, batch_size
+    sharded = mesh is not None and mesh_lib.batch_shard_count(mesh) > 1
+    if sharded:
+        nproc = mesh_lib.batch_shard_count(mesh)
+        assert batch_size % nproc == 0, (
+            f"eval batch_size {batch_size} must divide over {nproc} "
+            "processes")
+        lo, per = mesh_lib.shard_rows(mesh, batch_size)
     batches = list(eval_batches(len(dataset), batch_size))
     if max_batches is not None:
         batches = batches[:max_batches]
@@ -102,7 +121,8 @@ def _run(dataset, cfg, batch_size, step, params, util_feed, device,
     def producer():
         try:
             for idx, valid in batches:
-                q.put((host_tensors(dataset.raw_batch(idx), device), valid))
+                raw = dataset.raw_batch(idx[lo:lo + per])
+                q.put((host_tensors(raw, device), valid))
         except Exception as e:
             # the consumer would otherwise block in q.get() forever
             q.put((_ProducerError(e), 0))
@@ -112,6 +132,8 @@ def _run(dataset, cfg, batch_size, step, params, util_feed, device,
 
     def drain_one(bi):
         out, valid = pending.popleft()
+        if sharded:
+            out = mesh_lib.gather_rows(out, mesh)
         util_feed({k: v[:valid].cpu().numpy() for k, v in out.items()})
         if progress:
             progress(bi, valid)
@@ -223,7 +245,7 @@ def _feed_all(util):
 
 
 def eval2d_gt_cropped(posenet_params, dataset, batch_size=32, progress=None,
-                      max_batches=None, *, device):
+                      max_batches=None, mesh=None, *, device):
     """PoseNet alone on ground-truth crops; 2D EPE in source-image pixels.
 
     Reference: eval2d_gt_cropped.py (reader settings :38, EPE / crop_scale
@@ -233,13 +255,14 @@ def eval2d_gt_cropped(posenet_params, dataset, batch_size=32, progress=None,
     params, device = _device_params(posenet_params, device)
     util = EvalUtil()
     _run(dataset, GT_CROP_CONFIG, batch_size, step_gt_cropped, params,
-         _feed_visible(util), device, progress, max_batches=max_batches)
+         _feed_visible(util), device, progress, max_batches=max_batches,
+         mesh=mesh)
     return _px_metrics(util)
 
 
 def eval2d_full_image(params, dataset, batch_size=16, use_wrist_coord=True,
-                      scale_to_size=True, progress=None, max_batches=None, *,
-                      device):
+                      scale_to_size=True, progress=None, max_batches=None,
+                      mesh=None, *, device):
     """HandSegNet + PoseNet on full frames; 2D EPE in dataset pixels.
 
     Reference: eval2d.py. With scale_to_size both GT and predictions live in
@@ -251,12 +274,12 @@ def eval2d_full_image(params, dataset, batch_size=16, use_wrist_coord=True,
     util = EvalUtil()
     _run(dataset, full_image_config(use_wrist_coord, scale_to_size),
          batch_size, step_full_image, params, _feed_visible(util), device,
-         progress, max_batches=max_batches)
+         progress, max_batches=max_batches, mesh=mesh)
     return _px_metrics(util)
 
 
 def eval3d_lifting(variant, lifting_params, dataset, batch_size=32,
-                   progress=None, max_batches=None, *, device):
+                   progress=None, max_batches=None, mesh=None, *, device):
     """A lifting variant from GT scoremaps; 3D EPE in meters.
 
     Reference: eval3d.py (reader :50, pred * keypoint_scale against the
@@ -267,12 +290,13 @@ def eval3d_lifting(variant, lifting_params, dataset, batch_size=32,
     util = EvalUtil()
     _run(dataset, GT_CROP_CONFIG, batch_size,
          functools.partial(step_lifting, variant), params, _feed_all(util),
-         device, progress, max_batches=max_batches)
+         device, progress, max_batches=max_batches, mesh=mesh)
     return _mm_metrics(util)
 
 
 def eval3d_from_posenet(variant, params, dataset, batch_size=32,
-                        progress=None, max_batches=None, *, device):
+                        progress=None, max_batches=None, mesh=None, *,
+                        device):
     """Lifting from PoseNet's predicted scoremaps on GT crops; 3D EPE (m).
 
     No reference script: it isolates the 2D -> 3D hand-off. The metric math
@@ -283,12 +307,13 @@ def eval3d_from_posenet(variant, params, dataset, batch_size=32,
     util = EvalUtil()
     _run(dataset, FROM_POSENET_CONFIG, batch_size,
          functools.partial(step_from_posenet, variant), params,
-         _feed_all(util), device, progress, max_batches=max_batches)
+         _feed_all(util), device, progress, max_batches=max_batches,
+         mesh=mesh)
     return _mm_metrics(util)
 
 
 def eval_full_pipeline(params, dataset, batch_size=16, progress=None,
-                       max_batches=None, *, device):
+                       max_batches=None, mesh=None, *, device):
     """Full cascade image -> 3D; EPE in mm, AUC 0-50 mm and the 20-50 mm
     subset.
 
@@ -301,7 +326,7 @@ def eval_full_pipeline(params, dataset, batch_size=16, progress=None,
     util = EvalUtil()
     _run(dataset, FULL_PIPELINE_CONFIG, batch_size, step_full_pipeline,
          params, _feed_visible(util), device, progress,
-         max_batches=max_batches)
+         max_batches=max_batches, mesh=mesh)
     metrics = _mm_metrics(util)
     metrics["auc_20_50mm"] = calc_auc(metrics["thresholds_m"][8:] * 1000.0,
                                       metrics["pck_curve"][8:])

@@ -28,6 +28,7 @@ from hand3d_tpu_torch.batching import (check_input, chunked_predict,
                                        normalize_images,
                                        select_serving_outputs)
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.weights import load_npz, params_from_jax
 
 __all__ = ["AutoBucketEstimator", "DeviceParams", "DynamicBatcher",
@@ -159,8 +160,12 @@ class HandPoseEstimator:
       calibration_images: [N, H, W, 3] representative images, required by
         "int8_static": the float cascade runs on them on the device and its
         activation ranges set the static scales.
-      mesh, phase_pack: the JAX package's multi-chip serving and TPU lane
-        packing; not ported, they raise.
+      mesh: a data-parallel mesh (``parallel.make_mesh``): every rank
+        builds the estimator and calls ``predict`` with the same images;
+        each computes its rows of every padded batch and the outputs are
+        all-gathered, so every rank returns the whole answer. batch_size
+        must divide over the mesh's batch shards.
+      phase_pack: the JAX package's TPU lane packing; out of scope, raises.
 
     On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
     the cascade's parity contract is f32. The bf16 mode allows TF32 for its
@@ -171,11 +176,15 @@ class HandPoseEstimator:
                  compute_dtype=None, left_hand=True, seg_scale=1.0, *,
                  device, mesh=None, quantize=None, phase_pack=False,
                  quantize_scope=None, calibration_images=None):
+        self.mesh = mesh
+        self.rows = (0, batch_size)  # this rank's rows of a padded batch
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh (multi-chip serving) is not ported: the port serves "
-                "on one device (ROADMAP.md 'Still to port', 'What "
-                "training left out')")
+            n_shards = mesh_lib.batch_shard_count(mesh)
+            assert batch_size % n_shards == 0, (
+                f"batch_size {batch_size} not divisible by the mesh's "
+                f"{n_shards} batch shards (slice x data)")
+            self.rows = mesh_lib.shard_rows(mesh, batch_size)
+            device = mesh_lib.rank_device(device)
         self.device = precision.exact_f32(device)
         self.net = ColorHandPose3D(compute_dtype=compute_dtype,
                                    seg_scale=seg_scale)
@@ -184,18 +193,22 @@ class HandPoseEstimator:
             calibration_images, left_hand, seg_scale, phase_pack)
         self.batch_size = batch_size
         self.input_hw = tuple(input_hw)
-        self.hand_side = hand_side_tensor(left_hand, batch_size, self.device)
+        self.hand_side = hand_side_tensor(left_hand, self.rows[1],
+                                          self.device)
 
     @classmethod
     def from_npz(cls, path, **kwargs):
         return cls(load_npz(path), **kwargs)
 
     def _run(self, chunk):
-        image = torch.from_numpy(chunk).to(self.device)
+        lo, per = self.rows
+        image = torch.from_numpy(chunk[lo:lo + per]).to(self.device)
         with torch.inference_mode():
-            out = self.net.inference(self.params, image, self.hand_side,
-                                     keypoints_scoremap=False)
-        return select_serving_outputs(out)
+            out = select_serving_outputs(self.net.inference(
+                self.params, image, self.hand_side, keypoints_scoremap=False))
+            if self.mesh is not None:
+                out = mesh_lib.gather_rows(out, self.mesh)
+        return out
 
     def warmup(self):
         """Run one batch ahead of traffic (kernel build, cuDNN set-up)."""
@@ -286,7 +299,8 @@ class AutoBucketEstimator:
     remain in the bucket's frame (a scalar crop scale cannot survive an
     anisotropic resize); the ``snap_hw`` output records that frame.
 
-    All other constructor kwargs pass through to HandPoseEstimator; the
+    All other constructor kwargs pass through to HandPoseEstimator (``mesh``
+    among them: every bucket then spreads its batches over the ranks); the
     int8 options (``quantize``, ``quantize_scope``, ``calibration_images``)
     are applied here, once, to the params the buckets share.
     """
@@ -294,6 +308,8 @@ class AutoBucketEstimator:
     def __init__(self, params, batch_size=16, snap_hws=None, max_buckets=8,
                  *, device, quantize=None, quantize_scope=None,
                  calibration_images=None, **kwargs):
+        if kwargs.get("mesh") is not None:
+            device = mesh_lib.rank_device(device)
         self.device = precision.exact_f32(device)
         self.params = quantized_device_params(
             params, self.device, quantize, quantize_scope,

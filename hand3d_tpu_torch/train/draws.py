@@ -10,6 +10,11 @@ order, with the very calls the per-step path makes (``DrawPlan.fill``): the
 values are the per-step path's, bit for bit. In the step, a ``Planned``
 source stands where the generator stood and returns the device slices of
 those values in the same order.
+
+Under a data-parallel mesh a rank holds some rows of a step's global batch.
+Its draws are still those of the global batch: a ``Rows`` source draws at
+the global batch's shape and hands the rank its rows, so the step does not
+depend on the number of ranks.
 """
 
 from typing import Any, Callable, NamedTuple
@@ -29,6 +34,45 @@ def step_generator(key, j, accum_steps):
     if accum_steps == 1:
         return augment.generator(STEP_STREAM, *key)
     return augment.generator(STEP_STREAM, *key, j)
+
+
+# the argument of each draw primitive that holds the shape of its draw,
+# whose leading axis is the batch's
+_SHAPE_ARG = {augment.truncated_normal.__wrapped__: 0,
+              augment.uniform.__wrapped__: 0,
+              augment.randint.__wrapped__: 1,
+              augment.keep.__wrapped__: 1}
+
+
+class Rows:
+    """A draw source for rows ``[lo, lo + rows)`` of a batch of ``total``:
+    each draw is made at the whole batch's shape, from ``source`` (a
+    generator or another draw source), and sliced to those rows."""
+
+    def __init__(self, source, total, lo, rows):
+        self.source = source
+        self.total = total
+        self.lo = lo
+        self.rows = rows
+
+    def draw(self, fn, args):
+        i = _SHAPE_ARG[fn]
+        shape = tuple(args[i])
+        if not shape or shape[0] != self.rows:
+            raise ValueError(f"draw {fn.__name__}{args}: its leading axis "
+                             f"is not the batch's {self.rows} rows")
+        whole = args[:i] + ((self.total, *shape[1:]),) + args[i + 1:]
+        if isinstance(self.source, torch.Generator):
+            out = fn(self.source, *whole)
+        else:
+            out = self.source.draw(fn, whole)
+        return out[self.lo:self.lo + self.rows]
+
+    def get_state(self):
+        return self.source.get_state()
+
+    def set_state(self, state):
+        self.source.set_state(state)
 
 
 class Call(NamedTuple):

@@ -8,6 +8,12 @@ run with exit code 17; SIGTERM / SIGINT save a snapshot and stop.
 ``steps_per_call > 1`` holds the whole dataset on the device and runs
 windows of that many steps (``trainer.make_resident_train_step``: on a CUDA
 device, replays of one captured step).
+
+``mesh`` trains data-parallel over the ranks of a ``parallel.make_mesh``:
+every rank starts from rank 0's params, is fed its rows of each global batch
+and takes the same update. Rank 0 alone writes snapshots and the metrics log
+and reports (each write followed by a barrier); a SIGTERM / SIGINT on any
+rank stops every rank at the same step, agreed at each step boundary.
 """
 
 import contextlib
@@ -20,10 +26,11 @@ import time
 import numpy as np
 
 from hand3d_tpu_torch.data.pipeline import epoch_indices, resident_data
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.train import checkpoints
 from hand3d_tpu_torch.train.trainer import (init_state,
                                             make_resident_train_step,
-                                            make_train_step)
+                                            make_train_step, tree_leaves)
 
 WATCHDOG_EXIT_CODE = 17
 
@@ -109,8 +116,14 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
     (``yield_raw``). A window is the unit of progress: one read of its
     losses, one watchdog beat; snapshots and evals land on the first window
     boundary at or after each configured step, and every step's loss is
-    still reported, with the LR the device took for it. ``mesh`` is not
-    ported (the port trains on one device).
+    still reported, with the LR the device took for it.
+
+    ``mesh`` (``parallel.make_mesh``): data-parallel training. The pipeline
+    must be sharded over the mesh (``InputPipeline(mesh=...)``); ``--resume``
+    reads on every rank, then every rank takes rank 0's params. Snapshots,
+    the metrics log and ``log`` are rank 0's; the evals run on every rank
+    (``eval_fn`` runs the mesh harness); a stop signal on any rank stops all
+    of them at the same step. The watchdog is per rank.
     """
     if steps_per_call > 1:
         if mesh is not None:
@@ -123,10 +136,17 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
                 "steps_per_call > 1 requires a fused pipeline "
                 "(InputPipeline(..., yield_raw=True)): preprocessing must "
                 "run inside the resident step")
+    lead = mesh is None or mesh_lib.process_index() == 0
+    rank_log = log  # the watchdog's, on every rank
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported: the port trains on one device (ROADMAP.md "
-            "'Still to port', 'What training left out')")
+        want = (mesh_lib.data_index(mesh), mesh_lib.batch_shard_count(mesh))
+        if getattr(pipeline, "process_shard", (0, 1)) != want:
+            raise ValueError(
+                f"the pipeline reads shard {pipeline.process_shard} of each "
+                f"epoch, the mesh feeds shard {want}: build it with "
+                "InputPipeline(..., mesh=mesh)")
+        if not lead:  # rank 0 reports and writes the metrics log
+            log, metrics_logger = (lambda *a, **k: None), None
     state = init_state(params, optimizer)
     start_step = 0
     if resume and snapshot_dir:
@@ -135,12 +155,14 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
             state = checkpoints.restore_snapshot(latest, state)
             start_step = state.step
             log(f"Resumed from {latest} at step {start_step}")
+    if mesh is not None:  # every rank starts from rank 0's params
+        mesh_lib.broadcast_(tree_leaves(state.params), mesh)
     if steps_per_call > 1:
         step_fn = make_resident_train_step(loss_fn, optimizer, remat=remat,
                                            accum_steps=accum_steps)
     else:
         step_fn = make_train_step(loss_fn, optimizer, remat=remat,
-                                  accum_steps=accum_steps)
+                                  accum_steps=accum_steps, mesh=mesh)
 
     preempt = {"signal": None}
     old_handlers = {}
@@ -157,10 +179,11 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
             old_handlers[sig] = signal.signal(sig, on_signal)
 
     progress = {"iter": start_step}
-    watchdog = _Watchdog(step_timeout, progress, log) if step_timeout else None
+    watchdog = (_Watchdog(step_timeout, progress, rank_log) if step_timeout
+                else None)
     loop = _Loop(progress, watchdog, show_loss_freq, snapshot_freq,
                  snapshot_dir, metrics_logger, log, eval_fn, eval_freq,
-                 preempt)
+                 preempt, mesh, lead)
     it = None
     try:
         if steps_per_call > 1:
@@ -194,7 +217,7 @@ class _Loop:
 
     def __init__(self, progress, watchdog, show_loss_freq, snapshot_freq,
                  snapshot_dir, metrics_logger, log, eval_fn, eval_freq,
-                 preempt):
+                 preempt, mesh=None, lead=True):
         self.progress = progress
         self.watchdog = watchdog
         self.show_loss_freq = show_loss_freq
@@ -205,6 +228,8 @@ class _Loop:
         self.eval_fn = eval_fn
         self.eval_freq = eval_freq
         self.preempt = preempt
+        self.mesh = mesh
+        self.lead = lead  # the rank that writes snapshots
         self.t0 = time.perf_counter()
 
     def beat(self):
@@ -212,13 +237,19 @@ class _Loop:
             self.watchdog.beat()
 
     def preempted(self, state, i):
-        """On a pending SIGTERM / SIGINT: snapshot at ``i`` and say so."""
-        if self.preempt["signal"] is None:
+        """On a pending SIGTERM / SIGINT: snapshot at ``i`` and say so. Under
+        a mesh the ranks agree first (a signal on any rank stops them all
+        here): a rank that stopped alone would leave the others blocked in
+        a collective."""
+        signum = self.preempt["signal"]
+        if self.mesh is not None:
+            if not mesh_lib.any_rank(signum is not None):
+                return False
+        elif signum is None:
             return False
-        self.log(f"signal {self.preempt['signal']}: saving snapshot at "
-                 f"iteration {i} and stopping")
-        if self.snapshot_dir:
-            checkpoints.save_snapshot(self.snapshot_dir, state, step=i)
+        self.log(f"signal {signum if signum is not None else 'on a peer'}: "
+                 f"saving snapshot at iteration {i} and stopping")
+        self.snapshot(state, i)
         return True
 
     def report(self, i, loss_v, start_step, **extra):
@@ -231,7 +262,10 @@ class _Loop:
 
     def snapshot(self, state, step):
         if self.snapshot_dir:
-            checkpoints.save_snapshot(self.snapshot_dir, state, step=step)
+            if self.lead:
+                checkpoints.save_snapshot(self.snapshot_dir, state, step=step)
+            if self.mesh is not None:
+                mesh_lib.barrier()
 
     def run_eval(self, state, step):
         ctx = self.watchdog.suspended() if self.watchdog is not None \

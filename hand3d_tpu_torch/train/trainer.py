@@ -17,6 +17,10 @@ Both steps share one core (``_make_step_core``, as in the JAX package): the
 gradients, the accumulation and the Adam update mean one thing on both. The
 update reads its LR and bias corrections from the step counter in the Adam
 state, on the params' device, so a CUDA graph can replay it.
+
+``make_train_step(mesh=)`` is the data-parallel step: each rank is fed its
+rows of the global batch, and the step is the one a single process takes on
+that global batch, up to float reassociation (``DataParallelGrads``).
 """
 
 import functools
@@ -31,7 +35,8 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.data.preprocess import draw_noise
 from hand3d_tpu_torch.ops.numerics import device_constant
-from hand3d_tpu_torch.train import draws
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
+from hand3d_tpu_torch.train import draws, losses
 from hand3d_tpu_torch.train.draws import STEP_STREAM  # noqa: F401
 from hand3d_tpu_torch.train.schedule import piecewise_constant
 
@@ -321,7 +326,8 @@ def _make_step_core(loss_fn, optimizer, remat=False, accum_steps=1):
     return core
 
 
-def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
+def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1,
+                    mesh=None):
     """``step(state, batch, key) -> (state, {"loss": tensor})`` for
     ``loss_fn(params, batch, generator) -> scalar``.
 
@@ -336,7 +342,21 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
     from its own generator, (key, j). For a loss that is a mean over samples
     this equals the full-batch step; the PoseNet loss normalizes by the
     batch's visibility count, so there it is the mean of microbatch losses.
+
+    ``mesh`` (``parallel.make_mesh``): the data-parallel step. ``batch`` is
+    this rank's rows of the global batch (``InputPipeline`` shards it), and
+    the gradients and loss are the global batch's (``DataParallelGrads``);
+    every rank then applies the same update.
     """
+    if mesh is not None:
+        grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
+
+        def dp_step(state, batch, key):
+            loss, grads = grads_of(state.params, batch, key)
+            optimizer.apply(state.opt_state, state.params, grads, state.step)
+            return state._replace(step=state.step + 1), {"loss": loss}
+
+        return dp_step
     core = _make_step_core(loss_fn, optimizer, remat, accum_steps)
 
     def step(state, batch, key):
@@ -347,6 +367,89 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
         return state._replace(step=state.step + 1), {"loss": loss}
 
     return step
+
+
+class DataParallelGrads:
+    """``grads(params, batch, key) -> (loss, grads)`` of the GLOBAL batch on
+    ``mesh``, given this rank's rows of it, as GSPMD computes them in the
+    JAX package.
+
+    The global batch is the ranks' rows in rank order. Its microbatch j
+    (``accum_steps``) is rows ``[j * m, (j + 1) * m)``; a rank runs the rows
+    of it that it holds, and skips a microbatch it holds none of. Each
+    rank's loss is its share of the global one (``losses.batch_share``):
+    a batch-coupled normalizer such as PoseNet's visibility count is
+    all-reduced before the division, and a mean over the batch takes the
+    rank's share of its rows. A rank that skips a microbatch joins its
+    normalizers' all-reduces with zeros, their shapes recorded once by a
+    one-row forward. The draws are those of the global microbatch
+    (``draws.Rows`` over ``draws.step_generator(key, j, accum_steps)``).
+    The ranks' gradients and losses are then summed with ONE all-reduce
+    over a flat bucket: every rank holds the same sums, bit for bit, and
+    its Adam update is the same.
+    """
+
+    def __init__(self, loss_fn, mesh, remat=False, accum_steps=1):
+        remat_saves(remat)
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps {accum_steps} < 1")
+        self.loss_fn = loss_fn
+        self.mesh = mesh
+        self.remat = remat
+        self.accum_steps = accum_steps
+        self.group = mesh_lib.data_group(mesh)
+        self.recorded = None  # the normalizers' shapes, once recorded
+
+    def _record(self, params, batch):
+        if self.recorded is None:
+            share = losses.BatchShare(self.group, 1, 1, record=True)
+            one = {k: v[:1] for k, v in batch.items()}
+            with torch.no_grad(), losses.batch_share(share):
+                self.loss_fn(params, one, torch.Generator().manual_seed(0))
+            self.recorded = share.recorded
+        return self.recorded
+
+    def __call__(self, params, batch, key):
+        a_steps = self.accum_steps
+        n = next(iter(batch.values())).shape[0]
+        total = n * mesh_lib.batch_shard_count(self.mesh)
+        lo = mesh_lib.data_index(self.mesh) * n
+        if total % a_steps:
+            raise ValueError(f"batch axis {total} not divisible by "
+                             f"accum_steps {a_steps}")
+        m = total // a_steps
+        device = next(iter(batch.values())).device
+        loss_sum, grad_sum = None, None
+        for j in range(a_steps):
+            a, b = max(lo, j * m), min(lo + n, (j + 1) * m)
+            share = losses.BatchShare(self.group, b - a, m)
+            if b <= a:
+                share.join(self._record(params, batch), device)
+                continue
+            micro = {k: v[a - lo:b - lo] for k, v in batch.items()}
+            source = draws.Rows(draws.step_generator(key, j, a_steps), m,
+                                a - j * m, b - a)
+
+            def shared(p, x, generator):
+                share.rewind()  # a recomputed forward reuses the sums
+                return self.loss_fn(p, x, generator)
+
+            with losses.batch_share(share):
+                loss, grads = value_and_grad(shared, params, micro, source,
+                                             self.remat)
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, list(grads)
+            else:
+                loss_sum = loss_sum + loss
+                grad_sum = [x + g for x, g in zip(grad_sum, grads)]
+        *grad_sum, loss_sum = mesh_lib.sum_flat(
+            [*grad_sum, loss_sum.reshape(1).to(grad_sum[0].dtype)],
+            self.mesh)
+        loss_sum = loss_sum.reshape(())
+        if a_steps == 1:
+            return loss_sum, grad_sum
+        inv = 1.0 / a_steps
+        return loss_sum * inv, [g * inv for g in grad_sum]
 
 
 def make_resident_train_step(loss_fn, optimizer, remat=False, accum_steps=1):

@@ -128,6 +128,8 @@ def test_weight_readers_and_gates_run_without_jax(tmp_path):
         f"for m in {FORBIDDEN!r}:\n"
         "    sys.modules[m] = None\n"
         "from hand3d_tpu_torch.cli import _common, convert_weights\n"
+        "from hand3d_tpu_torch.parallel import mesh\n"
+        "from hand3d_tpu_torch.utils import debug, profiling\n"
         "from hand3d_tpu_torch.data import synthetic\n"
         "from hand3d_tpu_torch.tools import (generalization_check,\n"
         "                                    overfit_check)\n"

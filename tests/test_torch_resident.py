@@ -223,14 +223,16 @@ def test_resident_resume_equals_the_straight_run_bitwise(data, per_step,
 
 
 def test_resident_needs_a_fused_pipeline_and_no_mesh(data):
+    from hand3d_tpu_torch.parallel import make_mesh
+
     pipeline = InputPipeline(RHDDataset("training", data), CFG, 2,
                              device="cpu")  # not yield_raw
     with pytest.raises(ValueError, match="yield_raw"):
         fit(train_posenet.loss_fn, _params(),
             trainer.make_optimizer([1e-4], []), pipeline, 2,
             steps_per_call=2, show_loss_freq=0, snapshot_freq=0, log=quiet)
-    with pytest.raises(ValueError, match="mesh"):
-        _run(data, 2, 2, mesh=object())
+    with pytest.raises(ValueError, match="does not compose with a mesh"):
+        _run(data, 2, 2, mesh=make_mesh())
 
 
 def test_the_resident_loop_reports_windows_and_halts_on_nan(data, tmp_path):

@@ -203,15 +203,33 @@ def test_seg_scale_estimator_matches_jax(jax_params, np_params):
 
 
 @pytest.mark.parametrize("kwargs, queue", [
-    ({"phase_pack": True}, "out of scope"),
-    ({"mesh": object()}, "What training left out")])
+    ({"phase_pack": True}, "out of scope")])
 def test_unported_options_raise(np_params, kwargs, queue):
     with pytest.raises(NotImplementedError, match=queue):
         serving.HandPoseEstimator(np_params, batch_size=1, device="cpu",
                                   **kwargs)
-    if "mesh" not in kwargs:
-        with pytest.raises(NotImplementedError, match=queue):
-            serving.AutoBucketEstimator(np_params, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match=queue):
+        serving.AutoBucketEstimator(np_params, device="cpu", **kwargs)
+
+
+def test_estimator_on_a_one_rank_mesh_equals_no_mesh(np_params):
+    """mesh= (tests/test_torch_mesh.py runs two ranks): on a mesh of one
+    rank, the estimator and a bucket of AutoBucketEstimator answer as
+    without one, bit for bit."""
+    from hand3d_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    images = frames(3, *BUCKET, seed=21)
+    want = serving.HandPoseEstimator(np_params, batch_size=2,
+                                     input_hw=BUCKET, device="cpu")
+    for est in (serving.HandPoseEstimator(np_params, batch_size=2,
+                                          input_hw=BUCKET, device="cpu",
+                                          mesh=mesh),
+                serving.AutoBucketEstimator(np_params, batch_size=2,
+                                            device="cpu", mesh=mesh)):
+        got, ref = est.predict(images), want.predict(images)
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 # --- int8 -------------------------------------------------------------------
@@ -600,6 +618,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted((repo / "hand3d_tpu_torch").rglob("*.py"))
     files.append(repo / "chip_smoke.py")
     assert len(files) > 40
+    assert {"parallel/mesh.py", "utils/debug.py", "utils/profiling.py"} <= {
+        str(p.relative_to(repo / "hand3d_tpu_torch")) for p in files[:-1]}
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

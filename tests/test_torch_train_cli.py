@@ -3,8 +3,8 @@ sizes on the fixture's 320x320 records: they train, print the JAX CLIs'
 lines, snapshot, resume exactly, log the scheduled LR, warm-start from a
 snapshot, run the in-training eval, train device-resident
 (``--steps-per-call``) under a named recompute policy, train under the int8
-fake-quant view (``--qat``), and refuse the flags the port does not have
-yet.
+fake-quant view (``--qat``), train on a one-rank mesh (``--mesh 1x1``) as
+without one, and refuse the flags and meshes that cannot run.
 """
 
 import importlib
@@ -98,7 +98,10 @@ def test_posenet_in_training_eval_and_warm_start(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mesh", "2x1"], NotImplementedError, "What training left out"),
+    (["--mesh", "3x1"], AssertionError, r"mesh 3x1 != 1 devices"),
+    (["--mesh", "2x2"], NotImplementedError, "Out of scope this round"),
+    (["--mesh", "2x1", "--steps-per-call", "2"], ValueError,
+     "steps_per_call > 1 does not compose with a mesh"),
     (["--steps-per-call", "4", "--no-fused"], ValueError, "yield_raw"),
     (["--remat", "save_only_these_names"], TypeError, "policy factory"),
     (["--accum-steps", "3"], ValueError, "not divisible"),
@@ -108,6 +111,24 @@ def test_unported_flags_raise(data, tmp_path, flags, error, match):
     with pytest.raises(error, match=match):
         main("train_lifting", _argv("train_lifting", data, tmp_path, 1,
                                     *flags))
+
+
+def test_mesh_1x1_equals_the_run_without_a_mesh(data, tmp_path, capsys):
+    """--mesh 1x1 in one process (no launcher): a mesh of one rank, whose
+    collectives change nothing: the same lines, snapshot and params, bit
+    for bit."""
+    plain = main("train_posenet", _argv("train_posenet", data, tmp_path, 3))
+    plain_out = capsys.readouterr().out
+    meshed = main("train_posenet", _argv("train_posenet", data,
+                                         tmp_path / "m", 3, "--mesh", "1x1"))
+    meshed_out = capsys.readouterr().out
+    strip = re.compile(r"\t [\d.]+ it/s")
+    assert strip.sub("", meshed_out) == strip.sub("", plain_out)
+    for a, b in zip(trainer.tree_leaves(meshed.params),
+                    trainer.tree_leaves(plain.params)):
+        assert torch.equal(a, b)
+    assert [s for s, _ in checkpoints.sorted_snapshots(
+        str(tmp_path / "m" / "snaps"))] == [3]
 
 
 def test_qat_trains_under_the_fake_quant_view(data, tmp_path, capsys,
