@@ -4,9 +4,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --mesh-cards N`` runs the device, build and mesh
-phases alone, with one NCCL rank on each of N cards instead of two gloo
-ranks on one.
+``python3 chip_smoke.py --mesh-cards N`` runs the device, build, mesh and
+parallel phases alone, with one NCCL rank on each of N cards instead of two
+gloo ranks on one.
 
 Phases, in order; any failure raises and exits non-zero before the result
 line is printed:
@@ -150,7 +150,30 @@ line is printed:
    both kernels held to their twins on each rank's rows. One NCCL rank
    (torchrun's variables set here): train_posenet --mesh 1x1
    --deterministic equal to the run without a mesh bit for bit, and ms a
-   mesh step against a plain one.
+   mesh step against a plain one;
+15. parallel: the JAX package's multichip dry run (__graft_entry__.py
+   dryrun_multichip) on ranks, in child processes of this script: two gloo
+   ranks share the card (on N cards one NCCL rank each). (a) 3 DP x TP
+   train steps (1x2; 2x2 and the multislice 2x1x2 on four cards) of the
+   whole cascade under the reference's three losses combined, at full
+   width on 128x128 images and crops, batch 8: the ranks bit-equal after
+   every step, the wide layers split over "model" on every rank, step 0
+   held to one process's step on the global batch at the same params and
+   draws (MESH_LOSS_RTOL, the TRAIN_* kink-aware bounds), ms a step beside
+   one process's plain step and the bytes each collective moved; (b) an SP
+   grad step of HandSegNet at 240x320 (1x2; 1x4 at 256x320 on four cards),
+   held to one process the same way; (c) a GPipe train step of PoseNet at
+   256x256 (data x stage 2, 2 microbatches), loss and gradients held to the
+   sequential loss's, the forward ticks timed beside the bubble fraction;
+   (d) an EP grad step of the MoE layer (4 experts, 64 -> 32), held to the
+   reference on each rank's tokens; (e) HandPoseEstimator(mesh=) at 240x320,
+   batch 8, f32 and int8, each rank's answers held to one process by
+   check_cascade, both kernels launched on every rank and equal to their
+   twins on that rank's tensors; (f) train_posenet through loop.fit at full
+   width with --mesh Dx2 for 2 steps (rank 0's params broadcast to every
+   rank, the state sharded, each snapshot gathered whole), rank 0's
+   snapshot equal to the gathered state bit for bit, then --resume from it
+   on (2D)x1 for one more step, the ranks bit-equal after each run.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -189,12 +212,13 @@ from hand3d_tpu_torch.data.preprocess import preprocess_rhd, preprocess_stb
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
 from hand3d_tpu_torch.eval import harnesses
-from hand3d_tpu_torch.models import cascade, posenet
+from hand3d_tpu_torch.models import cascade, handsegnet, posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
-from hand3d_tpu_torch.models.poseprior import VARIANTS
+from hand3d_tpu_torch.models.poseprior import VARIANTS, PosePriorNetwork
 from hand3d_tpu_torch.ops import keypoints, nn, quant, segmentation
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
+from hand3d_tpu_torch.parallel import collectives, expert, pipeline
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.cli import serve
 from hand3d_tpu_torch.export import export_estimator
@@ -202,7 +226,7 @@ from hand3d_tpu_torch.batching import select_serving_outputs
 from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
                                       DynamicBatcher, HandPoseEstimator,
                                       _map_back, _resize_to, normalize_images)
-from hand3d_tpu_torch.train import loop, trainer
+from hand3d_tpu_torch.train import losses, loop, trainer
 from hand3d_tpu_torch.weights import tf_ckpt
 
 CPU = torch.device("cpu")
@@ -270,6 +294,8 @@ TRAIN_LAST_LAYERS = {  # param paths that no kink follows
     "handsegnet": ("HandSegNet/conv6_2/",),
     "lifting proposed": ("PosePrior/fc_xyz/", "ViewpointNet/fc_vp_u"),
     "joint proposed": ("PosePrior/fc_xyz/", "ViewpointNet/fc_vp_u"),
+    "cascade": ("HandSegNet/conv6_2/", "PoseNet2D/conv7_7/",
+                "PosePrior/fc_xyz/", "ViewpointNet/fc_vp_u"),
 }
 # the same step on the CPU in float64 (params and preprocessed features cast
 # up; the same batch and draws), taking the card's branch at every leaky ReLU
@@ -405,6 +431,41 @@ MESH_EVAL_BATCH = 8  # global: 4 a rank
 MESH_SERVE_BATCH = 8
 MESH_TIMED_STEPS = 5
 MESH_TIMEOUT_S = 300
+# parallel: the JAX package's multichip dry run on ranks (TP, multislice,
+# SP, PP, EP, the estimator). On one card PARALLEL_WORLD gloo ranks share
+# it, as in the mesh phase. The TP step is the dry run's whole-cascade loss
+# at full width on PARALLEL_HW images and crops; its step 0, the SP step and
+# the PP step are held to one process on the global batch by the mesh
+# phase's bounds (MESH_LOSS_RTOL, the TRAIN_* kink-aware gradient bounds:
+# a column-parallel input gradient sums M partials in another order, and
+# the ranks' convs run other shapes than one process's); EP to
+# moe_dense_reference on each token slice within PARALLEL_EP_ATOL and
+# TRAIN_GRAD_RTOL_OF_MAX; the estimators by check_cascade (f32 bounds, the
+# INT8_* bounds for int8).
+PARALLEL_CHILD = "--parallel-child"
+PARALLEL_WORLD = 2
+PARALLEL_BATCH = 8  # global, as the dry run's at 4 devices and fewer
+PARALLEL_HW = 128
+PARALLEL_STEPS = 3
+PARALLEL_SHARD_PATHS = {  # path -> (the sharded dim, its whole length)
+    "HandSegNet/conv4_1/weights": (0, 512),
+    "PoseNet2D/conv6_1/weights": (0, 128),
+    "PosePrior/fc_rel0/weights": (1, 512),
+}
+PARALLEL_SP_BATCH = 2
+# the rows of a rank must stay even down to HandSegNet's third pool:
+# 240 / 2 = 120 -> 60 -> 30 do; 240 / 4 = 60 -> 30 -> 15 do not, so four
+# ranks take 256 rows (64 -> 32 -> 16)
+PARALLEL_SP_HW = {2: (240, 320), 4: (256, 320)}
+PARALLEL_PP_BATCH = 8
+PARALLEL_PP_HW = 256  # the reference's crop
+PARALLEL_PP_MICRO = 2
+PARALLEL_EP = (4, 64, 32)  # experts, in, out: the dry run's
+PARALLEL_EP_TOKENS = 32
+PARALLEL_EP_ATOL = 1e-5
+PARALLEL_SERVE_BATCH = 8
+PARALLEL_FIT_RECORDS = 16
+PARALLEL_FIT_STEPS = 2  # on DxM, then one more resumed on (D*M)x1
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -2150,7 +2211,7 @@ def grad_errs(stage, paths, grads, want):
     last layers' worst, the worst tensor, the median over tensors."""
     errs = {}
     for path, g, w in zip(paths, grads, want):
-        w = w.double()
+        w = w.cpu().double()
         scale = w.abs().max().item()
         require(scale > 0, f"{stage}: no gradient reaches {path}")
         errs[path] = (g.cpu().double() - w).abs().max().item() / scale
@@ -2980,7 +3041,7 @@ def phase_weights(dev, params_np):
     log(json.dumps(line))
     return launches
 
-# --- mesh: data parallelism over ranks ------------------------------------------
+# --- mesh: data parallelism over ranks ---------------------------------------
 
 
 def free_port():
@@ -3034,7 +3095,7 @@ def mesh_dp_steps(mesh, rank, data, tmp, dev):
         "--max-iter", str(MESH_TRAIN_STEPS), "--mesh", f"{world}x1",
         "--device", str(dev), "--snapshot-dir", os.path.join(tmp, f"dp{rank}")])
     state = trainer.init_state(job.params, job.optimizer)
-    mesh_lib.broadcast_(trainer.tree_leaves(state.params), mesh)
+    mesh_lib.broadcast_(trainer.tree_leaves(state.params))
     grads_of = trainer.DataParallelGrads(job.loss, mesh)
     paths = trainer.tree_paths(state.params)
     seed = job.options["seed"]
@@ -3379,6 +3440,630 @@ def phase_mesh(dev, params_np, smi, cards=1):
     return launches
 
 
+# --- parallel: TP, multislice, SP, PP and EP over ranks ----------------------
+
+
+def cascade_batch(b, hw, rng):
+    """The JAX package's multichip dry run's batch (__graft_entry__.py
+    ``dryrun_multichip``): images and crops of ``hw``, the 32x32 scoremaps
+    the lifting nets take."""
+    mask = rng.random((b, hw, hw)) < 0.2
+    return {
+        "image": (rng.normal(size=(b, hw, hw, 3)) * 0.1).astype(np.float32),
+        "hand_mask": np.stack([~mask, mask], -1).astype(np.float32),
+        "image_crop": (rng.normal(size=(b, hw, hw, 3)) * 0.1)
+        .astype(np.float32),
+        "scoremap_gt": rng.random((b, hw, hw, 21)).astype(np.float32),
+        "keypoint_vis21": np.ones((b, 21), np.float32),
+        "lifting_scoremap": rng.random((b, 32, 32, 21)).astype(np.float32),
+        "hand_side": np.tile(np.float32([[1.0, 0.0]]), (b, 1)),
+        "keypoint_xyz21_can": rng.normal(size=(b, 21, 3)).astype(np.float32),
+        "rot_mat": np.tile(np.eye(3, dtype=np.float32)[None], (b, 1, 1)),
+    }
+
+
+def cascade_loss(params, data, generator):
+    """The dry run's loss: every param of the cascade trained by the
+    reference's three losses combined."""
+    seg = handsegnet.apply(params[handsegnet.SCOPE], data["image"])
+    l_seg = losses.handsegnet_loss(seg, data["hand_mask"])
+    preds = posenet.apply(params[posenet.SCOPE], data["image_crop"])
+    l_pose = losses.posenet_scoremap_loss(preds, data["scoremap_gt"],
+                                          data["keypoint_vis21"])
+    lift = PosePriorNetwork("proposed").apply(
+        params, data["lifting_scoremap"], data["hand_side"], train=True,
+        generator=generator)
+    return l_seg + l_pose + losses.lifting_loss("proposed", lift, data)
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the calls and the bytes this rank sends through each
+    torch.distributed collective (the collectives of the port look them up
+    at each call)."""
+    sent = {}
+    dist = torch.distributed
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "all_to_all_single", "broadcast",
+             "batch_isend_irecv")
+    base = {n: getattr(dist, n) for n in names}
+
+    def nbytes(name, args):
+        if name == "batch_isend_irecv":
+            return sum(op.tensor.numel() * op.tensor.element_size()
+                       for op in args[0] if op.op is dist.isend)
+        t = args[1] if name in ("all_gather", "all_gather_into_tensor",
+                                "reduce_scatter_tensor",
+                                "all_to_all_single") else args[0]
+        return t.numel() * t.element_size()
+
+    def counting(name):
+        def call(*args, **kwargs):
+            c = sent.setdefault(name, {"calls": 0, "bytes": 0})
+            c["calls"] += 1
+            c["bytes"] += nbytes(name, args)
+            return base[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        yield sent
+    finally:
+        for n in names:
+            setattr(dist, n, base[n])
+
+
+def local_shapes(tree, paths):
+    got = dict(zip(trainer.tree_paths(tree),
+                   (tuple(t.shape) for t in trainer.tree_leaves(tree))))
+    return {p: got[p] for p in paths}
+
+
+def timed_ms(fn, dev):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def parallel_tp(mesh, rank, dev, label):
+    """PARALLEL_STEPS train steps of the whole cascade under DP x TP on
+    ``mesh``, from seeded random params, on the dry run's batch (this rank's
+    rows): per step the loss, ms, the collectives' calls and bytes and a
+    digest of the whole params after it. Step 0's gradients, gathered
+    whole, are held on rank 0 to one process's on the global batch at the
+    same params and draws; rank 0 then times that process's plain step."""
+    data = cascade_batch(PARALLEL_BATCH, PARALLEL_HW,
+                         np.random.default_rng(29))
+    opt = trainer.make_optimizer([1e-4], [])
+    whole = trainer.init_state(weights.params_from_jax(
+        weights.random_params(0), dev), opt)
+    state = trainer.shard_state(mesh, whole)
+    lo, per = mesh_lib.shard_rows(mesh, PARALLEL_BATCH)
+    local = {k: torch.from_numpy(v[lo:lo + per]).to(dev)
+             for k, v in data.items()}
+    grads_of = trainer.DataParallelGrads(cascade_loss, mesh)
+    out = {"mesh": label, "shapes": local_shapes(state.params,
+                                                 PARALLEL_SHARD_PATHS),
+           "steps": []}
+    for i in range(PARALLEL_STEPS):
+        with counted_collectives() as sent:
+            (loss, grads), ms = timed_ms(
+                lambda: grads_of(state.params, local, (0, i)), dev)
+        _, ms_adam = timed_ms(lambda: opt.apply(
+            state.opt_state, state.params, grads, state.step), dev)
+        state = state._replace(step=state.step + 1)
+        step = {"loss": loss.item(), "ms": ms + ms_adam, "collectives": sent,
+                "params": digest(trainer.tree_leaves(mesh_lib.gather_params(
+                    mesh, state.params)))}
+        if i == 0:
+            g = mesh_lib.gather_params(
+                mesh, trainer.tree_unflatten(state.params, grads))
+            if rank == 0:
+                ref_loss, ref_grads = trainer.value_and_grad(
+                    cascade_loss, whole.params,
+                    {k: torch.from_numpy(v).to(dev) for k, v in data.items()},
+                    augment.generator(trainer.STEP_STREAM, 0, 0))
+                step["loss_rel_err"] = abs(loss.item() - ref_loss.item()) / (
+                    abs(ref_loss.item()))
+                step["grad_err_of_max"] = grad_errs(
+                    "cascade", trainer.tree_paths(whole.params),
+                    trainer.tree_leaves(g), ref_grads)
+        out["steps"].append(step)
+    if rank == 0:  # one process's plain step on the global batch
+        plain = trainer.make_train_step(cascade_loss, opt)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        s = whole
+        ms = []
+        for i in range(PARALLEL_STEPS):
+            (s, _), t = timed_ms(lambda: plain(s, batch, (0, i)), dev)
+            ms.append(t)
+        out["plain_ms"] = ms
+    mesh_lib.barrier()
+    return out
+
+
+def parallel_fit(rank, world, tmp, dev):
+    """train_posenet through ``loop.fit`` at full width with ``--mesh
+    Dx2`` for PARALLEL_FIT_STEPS steps (rank 0's params broadcast to every
+    rank, the state sharded, the snapshot gathered whole), then
+    ``--resume`` from that snapshot on ``(2D)x1`` for one more step, at
+    the same global batch. Per run: this rank's local shapes, a digest of
+    the whole params, the loss lines (rank 0 logs them); on rank 0 whether the snapshot equals the gathered
+    state, params and Adam moments, bit for bit."""
+    rows = world // 2
+    snaps = os.path.join(tmp, "fit")
+
+    def run(mesh, per_rank, max_iter, *extra):
+        job = train_posenet.setup([
+            "--data", os.path.join(tmp, "train.bin"), "--device", str(dev),
+            "--batch-size", str(per_rank), "--max-iter", str(max_iter),
+            "--mesh", mesh, "--show-loss-freq", "1", "--snapshot-dir", snaps,
+            "--snapshot-freq", "100", *extra])
+        lines = []
+        state, secs = timed_ms(lambda: loop.fit(
+            job.loss, job.params, job.optimizer, job.pipeline, job.max_iter,
+            log=lines.append, **job.options), dev)
+        whole = trainer.gather_state(job.options["mesh"], state)
+        out = {"mesh": mesh, "step": state.step, "lines": lines, "ms": secs,
+               "shapes": local_shapes(state.params, [
+                   "PoseNet2D/conv6_1/weights"]),
+               "params": digest(trainer.tree_leaves(whole.params))}
+        return whole, out
+
+    whole, first = run(f"{rows}x2", MESH_TRAIN_BATCH // rows,
+                       PARALLEL_FIT_STEPS)
+    if rank == 0:
+        snap = torch.load(os.path.join(
+            snaps, f"snapshot-{PARALLEL_FIT_STEPS}.pt"), weights_only=True)
+        moments = whole.opt_state.state_dict()["state"]
+        first["snapshot_equal"] = (
+            trainer.tree_paths(snap["params"])
+            == trainer.tree_paths(whole.params)
+            and all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+                trainer.tree_leaves(snap["params"]),
+                trainer.tree_leaves(whole.params)))
+            and all(torch.equal(moments[i][k].cpu(),
+                                snap["opt_state"]["state"][i][k].cpu())
+                    for i in moments for k in ("exp_avg", "exp_avg_sq")))
+    mesh_lib.barrier()
+    _, resumed = run(f"{world}x1", MESH_TRAIN_BATCH // world,
+                     PARALLEL_FIT_STEPS + 1, "--resume")
+    mesh_lib.barrier()
+    return {"first": first, "resumed": resumed}
+
+
+def parallel_sp(mesh, rank, dev):
+    """A grad step of HandSegNet with its rows split over "model" at
+    PARALLEL_SP_HW; on rank 0 held to one process's step."""
+    hs, ws = PARALLEL_SP_HW[mesh_lib.model_size(mesh)]
+    rng = np.random.default_rng(31)
+    mask = rng.random((PARALLEL_SP_BATCH, hs, ws)) < 0.2
+    data = {"image": torch.from_numpy((rng.normal(size=(
+        PARALLEL_SP_BATCH, hs, ws, 3)) * 0.1).astype(np.float32)).to(dev),
+            "hand_mask": torch.from_numpy(np.stack([~mask, mask], -1)
+                                          .astype(np.float32)).to(dev)}
+    params = trainer.init_state(
+        weights.params_from_jax(weights.random_params(0)[handsegnet.SCOPE],
+                                dev), trainer.make_optimizer([1.0], [])).params
+    constrain = mesh_lib.spatial_constrainer(mesh)
+
+    def sp_loss(p, batch, generator):
+        return losses.handsegnet_loss(
+            handsegnet.apply(p, batch["image"], constrain=constrain),
+            batch["hand_mask"])
+
+    grads_of = trainer.DataParallelGrads(sp_loss, mesh)
+    lo, per = mesh_lib.shard_rows(mesh, PARALLEL_SP_BATCH)
+    mine = {k: v[lo:lo + per] for k, v in data.items()}
+    grads_of(params, mine, (0, 0))  # warm-up
+    with counted_collectives() as sent:
+        (loss, grads), ms = timed_ms(lambda: grads_of(params, mine, (0, 0)),
+                                     dev)
+    out = {"hw": [hs, ws], "rows_a_rank": hs // mesh_lib.model_size(mesh),
+           "loss": loss.item(), "ms": ms, "collectives": sent,
+           "grads": digest(grads)}
+    if rank == 0:
+        ref_loss, ref_grads = trainer.value_and_grad(
+            lambda p, b, g: losses.handsegnet_loss(
+                handsegnet.apply(p, b["image"]), b["hand_mask"]),
+            params, data, None)
+        out["loss_rel_err"] = abs(loss.item() - ref_loss.item()) / abs(
+            ref_loss.item())
+        out["grad_err_of_max"] = grad_errs(
+            "handsegnet", [f"HandSegNet/{p}" for p in
+                           trainer.tree_paths(params)], grads, ref_grads)
+    return out
+
+
+def parallel_pp(mesh, rank, dev):
+    """A GPipe train step of PoseNet (trunk split over every rank, the two
+    refinement units over "stage", PARALLEL_PP_MICRO microbatches) at
+    PARALLEL_PP_HW crops; the forward ticks timed (the device synchronized
+    at each hand-off); on rank 0 the loss and gradients held to the
+    sequential loss's on the global batch."""
+    rng = np.random.default_rng(37)
+    b = PARALLEL_PP_BATCH
+    hw = PARALLEL_PP_HW
+    data = [torch.from_numpy(a).to(dev) for a in (
+        (rng.normal(size=(b, hw, hw, 3)) * 0.1).astype(np.float32),
+        rng.random((b, hw, hw, 21)).astype(np.float32),
+        (rng.random((b, 21)) > 0.3).astype(np.float32))]
+    whole = weights.params_from_jax(weights.random_params(0)[posenet.SCOPE],
+                                    dev)
+    trunk, stacked = pipeline.stack_refinement_params(whole)
+    params = {"trunk": trainer.tree_map(lambda t: t.clone().requires_grad_(
+        True), trunk),
+              "refine": trainer.tree_map(lambda t: t.requires_grad_(True),
+                                         pipeline.shard_refinement_params(
+                                             mesh, stacked))}
+    per = b // mesh_lib.process_count()
+    lo = mesh_lib.process_index() * per
+    mine = [t[lo:lo + per] for t in data]
+    loss_fn = pipeline.posenet_pipeline_loss(mesh, PARALLEL_PP_MICRO)
+    opt = trainer.make_optimizer([1e-4], [])
+    adam = opt.init(params)
+    # tree order: "refine" (this stage's unit), then "trunk"
+    n_stage = len(trainer.tree_leaves(params["refine"]))
+    marks = []
+    base_shift = collectives.shift
+
+    def marked_shift(*args, **kwargs):
+        sync(dev)
+        marks.append(time.perf_counter())
+        return base_shift(*args, **kwargs)
+
+    def step():
+        loss = loss_fn(params["trunk"], params["refine"], *mine)
+        grads = torch.autograd.grad(loss, trainer.tree_leaves(params))
+        g_trunk, g_stage = pipeline.reduce_pipeline_grads(
+            mesh, grads[n_stage:], grads[:n_stage])
+        return loss, list(g_stage) + list(g_trunk)
+
+    step()  # warm-up
+    collectives.shift = marked_shift
+    try:
+        with counted_collectives() as sent:
+            (loss, grads), ms = timed_ms(step, dev)
+    finally:
+        collectives.shift = base_shift
+    ticks = [(b2 - a2) * 1e3 for a2, b2 in zip(marks, marks[1:])]
+    g_stage = [collectives.all_gather(g, mesh.get_group(pipeline.STAGE_AXIS),
+                                      0) for g in grads[:n_stage]]
+    g_whole = pipeline.unstack_refinement_params(
+        trainer.tree_unflatten(params["trunk"], grads[n_stage:]),
+        trainer.tree_unflatten(params["refine"], g_stage))
+    opt.apply(adam, params, grads, 0)
+    s = mesh_lib.axis_size(mesh, pipeline.STAGE_AXIS)
+    out = {"n_micro": PARALLEL_PP_MICRO, "stages": s, "ms": ms,
+           "loss": loss.item(), "collectives": sent,
+           "bubble_fraction": (s - 1) / (PARALLEL_PP_MICRO + s - 1),
+           "tick_ms_between_handoffs": ticks,
+           "stage_shape": tuple(params["refine"]["conv_1"]["weights"].shape)}
+    if rank == 0:
+        ref = trainer.tree_map(lambda t: t.clone().requires_grad_(True),
+                               whole)
+        ref_loss = losses.posenet_scoremap_loss(posenet.apply(ref, data[0]),
+                                                data[1], data[2])
+        ref_grads = torch.autograd.grad(ref_loss, trainer.tree_leaves(ref))
+        out["sequential_loss"] = ref_loss.item()
+        out["loss_rel_err"] = abs(loss.item() - ref_loss.item()) / abs(
+            ref_loss.item())
+        out["grad_err_of_max"] = grad_errs(
+            "posenet", [f"PoseNet2D/{p}" for p in trainer.tree_paths(ref)],
+            trainer.tree_leaves(g_whole), ref_grads)
+    return out
+
+
+def parallel_ep(mesh, rank, dev):
+    """An EP grad step of the MoE layer (PARALLEL_EP experts and widths, the
+    dry run's 32 tokens): on rank 0 the gathered outputs and the gradients
+    held to moe_dense_reference applied to each rank's token slice (the
+    capacity is a slice's budget)."""
+    n_exp, d_in, d_out = PARALLEL_EP
+    rng = np.random.default_rng(41)
+    whole = trainer.tree_map(
+        lambda t: t.requires_grad_(True), weights.params_from_jax(
+            expert.moe_dense_init(rng, n_exp, d_in, d_out), dev))
+    x = torch.from_numpy(rng.normal(size=(PARALLEL_EP_TOKENS, d_in))
+                         .astype(np.float32)).to(dev)
+    params = expert.shard_expert_params(mesh, whole)
+    params["experts"] = trainer.tree_map(lambda t: t.requires_grad_(True),
+                                         params["experts"])
+    world = mesh_lib.process_count()
+    per = PARALLEL_EP_TOKENS // world
+    mine = x[mesh_lib.process_index() * per:][:per]
+    gate, experts = (trainer.tree_leaves(params[k])
+                     for k in ("gate", "experts"))
+
+    def step():
+        y, aux = expert.moe_dense_apply(mesh, params, mine)
+        loss = y.square().sum() / (PARALLEL_EP_TOKENS * d_out) + 0.01 * aux
+        g = torch.autograd.grad(loss, gate + experts)
+        return y, loss, expert.reduce_expert_grads(mesh, g[:len(gate)],
+                                                   g[len(gate):])
+
+    step()
+    with counted_collectives() as sent:
+        (y, loss, (g_gate, g_exp)), ms = timed_ms(step, dev)
+    group = mesh.get_group(expert.EXPERT_AXIS)
+    y_all = collectives.all_gather(y, None, 0)
+    # the global loss (each rank's is its tokens' share plus the aux mean)
+    loss = y_all.square().mean() + (
+        loss - y.square().sum() / (PARALLEL_EP_TOKENS * d_out))
+    g_exp = [collectives.all_gather(g, group, 0) for g in g_exp]
+    out = {"ms": ms, "loss": loss.item(), "collectives": sent,
+           "slab": tuple(params["experts"]["weights"].shape)}
+    if rank == 0:
+        parts = [expert.moe_dense_reference(whole, x[r * per:(r + 1) * per])
+                 for r in range(world)]
+        ref_y = torch.cat([p[0] for p in parts])
+        ref_aux = torch.stack([p[1] for p in parts]).mean()
+        ref_loss = ref_y.square().mean() + 0.01 * ref_aux
+        ref_g = torch.autograd.grad(
+            ref_loss, trainer.tree_leaves(whole["gate"])
+            + trainer.tree_leaves(whole["experts"]))
+        out["out_err"] = (y_all - ref_y).abs().max().item()
+        out["loss_rel_err"] = abs(loss.item() - ref_loss.item()) / abs(
+            ref_loss.item())
+        out["grad_err_of_max"] = max(
+            ((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(list(g_gate) + g_exp, ref_g))
+        out["dropped"] = int((ref_y.abs().sum(dim=1) == 0).sum())
+    return out
+
+
+def parallel_serve(mesh, tmp, rank, dev, quantize):
+    """HandPoseEstimator(mesh=) at batch PARALLEL_SERVE_BATCH, H x W, with
+    ``quantize``: the answers on this rank, the cascade's fields of this
+    rank's rows gathered over the batch axes, both kernels launched and held
+    to their twins on this rank's tensors."""
+    est = HandPoseEstimator(weights.random_params(0),
+                            batch_size=PARALLEL_SERVE_BATCH,
+                            input_hw=(H, W), mesh=mesh, device=dev,
+                            quantize=quantize)
+    images = mesh_serve_images()
+    zero_counts()
+    (served, ms) = timed_ms(lambda: est.predict(images), dev)
+    counts = kernel_counts()
+    _, ms = timed_ms(lambda: est.predict(images), dev)
+    lo, per = est.rows
+    image = torch.from_numpy(normalize_images(images)[lo:lo + per]).to(dev)
+    fields = mesh_lib.gather_rows(
+        {k: torch.from_numpy(v).to(dev) for k, v in parity.port_fields(
+            est.params, image, est.hand_side).items()}, mesh)
+    det, seed, sm = slice_inputs(est.params, image, est.hand_side)
+    err = {}
+    for name, (got, want) in {
+            "flood_fill": (floodfill.flood_fill_cuda(det, seed, NUM_PASSES),
+                           segmentation.flood_fill_torch(det, seed,
+                                                         NUM_PASSES)),
+            "decode_upsampled": (decode.decode_upsampled_cuda(sm, FACTOR),
+                                 keypoints.decode_upsampled_torch(sm, FACTOR))
+            }.items():
+        require(torch.equal(got, want), f"rank {rank}: {name} differs from "
+                f"its twin on its rows ({quantize})")
+        err[name] = (got - want).abs().max().item()
+    label = quantize or "f32"
+    np.savez(os.path.join(tmp, f"par_{label}_{rank}.npz"),
+             **{f"served_{k}": v for k, v in served.items()},
+             **{f"fields_{k}": v.cpu().numpy() for k, v in fields.items()})
+    return {"launches": counts, "max_abs_err": err, "ms": ms,
+            "sharded": mesh_lib.is_sharded(est.params)}
+
+
+def parallel_child(rank, world, port, tmp, device, backend):
+    """One rank of phase_parallel: TP (and, on four ranks, multislice),
+    SP, PP, EP and the estimator, each on its mesh; the results as the last
+    stdout line."""
+    rank, world = int(rank), int(world)
+    dev = torch.device(device)
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.cuda.set_device(dev)
+    precision.exact_f32(dev)
+    mesh_lib.init_distributed(f"127.0.0.1:{port}", world, rank,
+                              backend=backend, timeout=MESH_TIMEOUT_S)
+    rows = world // 2
+    out, secs = {}, {}
+    for name, run in (
+            ("tp", lambda: parallel_tp(mesh_lib.make_mesh(rows, 2), rank,
+                                       dev, f"{rows}x2")),
+            ("multislice", lambda: parallel_tp(
+                mesh_lib.make_multislice_mesh(2, rows // 2, 2), rank, dev,
+                f"2x{rows // 2}x2") if world >= 4 else None),
+            ("sp", lambda: parallel_sp(mesh_lib.make_mesh(1, world), rank,
+                                       dev)),
+            ("pp", lambda: parallel_pp(pipeline.make_pipeline_mesh(rows, 2),
+                                       rank, dev)),
+            ("ep", lambda: parallel_ep(expert.make_expert_mesh(rows, 2),
+                                       rank, dev)),
+            ("fit", lambda: parallel_fit(rank, world, tmp, dev)),
+            ("serve", lambda: {q or "f32": parallel_serve(
+                mesh_lib.make_mesh(rows, 2), tmp, rank, dev, q)
+                for q in (None, "int8")})):
+        t0 = time.perf_counter()
+        result = run()
+        if result is not None:
+            out[name] = result
+            secs[name] = time.perf_counter() - t0
+    out["s"] = secs
+    require_exact_f32()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def phase_parallel(dev, params_np, smi, cards=1):
+    """The port's counterpart of the JAX package's multichip dry run
+    (__graft_entry__.py ``dryrun_multichip``), in child processes: on one
+    card PARALLEL_WORLD gloo ranks share it; on ``cards`` > 1 one NCCL rank
+    runs on each card. (a) DP x TP train steps of the whole cascade (1x2;
+    2x2 on four cards, and the multislice 2x1x2) held to one process's step
+    and the ranks to each other; (b) an SP grad step of HandSegNet (1x2 at
+    240x320; 1x4 at 256x320); (c) a GPipe PoseNet step (data x stage 2);
+    (d) an EP grad step of the MoE layer; (e) HandPoseEstimator(mesh=) f32
+    and int8 held to one process by parity.check_cascade, both kernels
+    launched on every rank and equal to their twins there; (f) fit with
+    --mesh Dx2, its snapshot, and the resume on (2D)x1."""
+    t_phase = time.perf_counter()
+    world = PARALLEL_WORLD if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    devices = ([MESH_DEVICE] * world if cards == 1
+               else [f"cuda:{r}" for r in range(cards)])
+    line = {"phase": "parallel", "card": smi, "world": world,
+            "backend": backend, "devices": devices}
+    launches = dict.fromkeys(KERNELS, 0)
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rhd_file(os.path.join(tmp, "train.bin"), PARALLEL_FIT_RECORDS,
+                       np.random.default_rng(37))
+        port = free_port()
+        t0 = time.perf_counter()
+        ranks = run_children([
+            [sys.executable, me, PARALLEL_CHILD, str(r), str(world),
+             str(port), tmp, devices[r], backend] for r in range(world)])
+        line["children_s"] = time.perf_counter() - t0
+        line["child_s"] = ranks[0]["s"]
+
+        for key in ("tp", "multislice"):
+            if key not in ranks[0]:
+                continue
+            runs = [r[key] for r in ranks]
+            for i, steps in enumerate(zip(*(r["steps"] for r in runs))):
+                require(len({(s["loss"], s["params"]) for s in steps}) == 1,
+                        f"{key} step {i}: the ranks differ: losses "
+                        f"{[s['loss'] for s in steps]}")
+            s = runs[0]["steps"][0]
+            e = s["grad_err_of_max"]
+            require(s["loss_rel_err"] <= MESH_LOSS_RTOL
+                    and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+                    and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+                    and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
+                    f"{key} step 0 differs from one process's step: loss "
+                    f"rel {s['loss_rel_err']}, gradients {e}")
+            for r in runs:
+                for path, shape in r["shapes"].items():
+                    dim, full = PARALLEL_SHARD_PATHS[path]
+                    require(shape[dim] == full // 2,
+                            f"{key}: {path} is not split over 'model': "
+                            f"{shape}")
+            line[key] = {
+                "mesh": runs[0]["mesh"], "shapes": runs[0]["shapes"],
+                "loss_rel_err": s["loss_rel_err"], "grad_err_of_max": e,
+                "ms_per_step": [st["ms"] for st in runs[0]["steps"]],
+                "plain_ms_per_step": runs[0]["plain_ms"],
+                "collectives_per_step": runs[0]["steps"][-1]["collectives"]}
+
+        sp = [r["sp"] for r in ranks]
+        require(len({(s["loss"], s["grads"]) for s in sp}) == 1,
+                "SP: the ranks differ")
+        e = sp[0]["grad_err_of_max"]
+        require(sp[0]["loss_rel_err"] <= MESH_LOSS_RTOL
+                and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+                and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+                and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
+                f"SP differs from one process: loss rel "
+                f"{sp[0]['loss_rel_err']}, gradients {e}")
+        line["sp"] = sp[0]
+
+        pp = [r["pp"] for r in ranks]
+        require(len({p["loss"] for p in pp}) == 1, "PP: the ranks' losses "
+                "differ")
+        e = pp[0]["grad_err_of_max"]
+        require(pp[0]["loss_rel_err"] <= MESH_LOSS_RTOL
+                and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+                and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+                and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
+                f"PP differs from the sequential loss: rel "
+                f"{pp[0]['loss_rel_err']}, gradients {e}")
+        line["pp"] = pp[0]
+        line["pp_tick_ms_by_rank"] = [p["tick_ms_between_handoffs"]
+                                      for p in pp]
+
+        ep = [r["ep"] for r in ranks]
+        require(len({p["loss"] for p in ep}) == 1, "EP: the ranks' losses "
+                "differ")
+        require(ep[0]["out_err"] <= PARALLEL_EP_ATOL
+                and ep[0]["loss_rel_err"] <= MESH_LOSS_RTOL
+                and ep[0]["grad_err_of_max"] <= TRAIN_GRAD_RTOL_OF_MAX,
+                f"EP differs from the per-slice reference: {ep[0]}")
+        line["ep"] = ep[0]
+
+        fits = [r["fit"] for r in ranks]
+        for key, steps in (("first", PARALLEL_FIT_STEPS),
+                           ("resumed", PARALLEL_FIT_STEPS + 1)):
+            runs = [f[key] for f in fits]
+            require(all(r["step"] == steps for r in runs),
+                    f"fit {key}: steps {[r['step'] for r in runs]}")
+            require(len({r["params"] for r in runs}) == 1,
+                    f"fit {key} on {runs[0]['mesh']}: the ranks' gathered "
+                    "params differ")
+        for r in fits:
+            shape = r["first"]["shapes"]["PoseNet2D/conv6_1/weights"]
+            require(shape[0] == PARALLEL_SHARD_PATHS[
+                "PoseNet2D/conv6_1/weights"][1] // 2,
+                    f"fit: conv6_1 is not split over 'model': {shape}")
+        require(fits[0]["first"]["snapshot_equal"], "fit: rank 0's snapshot "
+                "differs from the gathered state")
+        resumed = fits[0]["resumed"]["lines"]
+        require(resumed and resumed[0].endswith(
+            f"snapshot-{PARALLEL_FIT_STEPS}.pt at step {PARALLEL_FIT_STEPS}"),
+                f"fit: the run on {fits[0]['resumed']['mesh']} did not "
+                f"resume from the {fits[0]['first']['mesh']} snapshot: "
+                f"{resumed[:1]}")
+        line["fit"] = {k: {f: fits[0][k][f] for f in
+                           ("mesh", "step", "lines", "ms")}
+                       for k in ("first", "resumed")}
+
+        images = mesh_serve_images()
+        for q, bounds in ((None, (SCOREMAP_ATOL, COORD3D_ATOL, FLIP_BOUND)),
+                          ("int8", (INT8_SCOREMAP_ATOL, INT8_COORD3D_ATOL,
+                                    INT8_FLIP_BOUND))):
+            label = q or "f32"
+            est = HandPoseEstimator(params_np, batch_size=PARALLEL_SERVE_BATCH,
+                                    input_hw=(H, W), device=dev, quantize=q)
+            image = torch.from_numpy(normalize_images(images)).to(dev)
+            ref = parity.port_fields(est.params, image, est.hand_side)
+            rerun_fn = parity.port_rerun(est.params, image, est.hand_side)
+            answers, summaries = [], []
+            for r in range(world):
+                z = np.load(os.path.join(tmp, f"par_{label}_{r}.npz"))
+                fields = {k[7:]: z[k] for k in z.files
+                          if k.startswith("fields_")}
+                served = {k[7:]: z[k] for k in z.files
+                          if k.startswith("served_")}
+                summaries.append(parity.check_cascade(
+                    ref, fields, rerun_fn, scoremap_atol=bounds[0],
+                    coord3d_atol=bounds[1], flip_bound=bounds[2]))
+                for k in ("keypoint_uv21", "keypoint_coord3d", "center",
+                          "scale_crop"):
+                    require(np.array_equal(served[k], fields[k]),
+                            f"rank {r}: served {k} differs from its cascade "
+                            f"({label})")
+                answers.append(served)
+                s = ranks[r]["serve"][label]
+                require(s["sharded"], f"rank {r}: the {label} estimator's "
+                        "params are not split over 'model'")
+                for name in KERNELS:
+                    require(s["launches"][name] > 0, f"rank {r}'s {label} "
+                            f"estimator never launched {name}")
+                    launches[name] += s["launches"][name]
+            for k, v in answers[0].items():
+                require(all(np.array_equal(v, a[k]) for a in answers),
+                        f"the ranks' served {k} differ ({label})")
+            line[f"serve_{label}"] = {
+                "check_cascade": summaries,
+                "ms_per_predict": [r["serve"][label]["ms"] for r in ranks],
+                "kernel_vs_twin_by_rank": [r["serve"][label]["max_abs_err"]
+                                           for r in ranks]}
+    require_exact_f32()
+    line["launches"] = launches
+    line["s"] = time.perf_counter() - t_phase
+    log(json.dumps(line))
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3406,7 +4091,8 @@ def main():
             ("train_resident", lambda: phase_train_resident(dev)),
             ("weights", lambda: phase_weights(dev, params_np)),
             ("quant", lambda: phase_quant(dev, params_np, f32_fps, err)),
-            ("mesh", lambda: phase_mesh(dev, params_np, smi))):
+            ("mesh", lambda: phase_mesh(dev, params_np, smi)),
+            ("parallel", lambda: phase_parallel(dev, params_np, smi))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0
@@ -3424,9 +4110,9 @@ def main():
 
 
 def main_cards(cards):
-    """``chip_smoke.py --mesh-cards N``: the mesh phase alone with one NCCL
-    rank on each of N cards (data parallelism across cards); the rest of
-    the script is the one-card run's."""
+    """``chip_smoke.py --mesh-cards N``: the mesh and parallel phases alone
+    with one NCCL rank on each of N cards; the rest of the script is the
+    one-card run's."""
     cards = int(cards)
     smi = phase_device()
     require(torch.cuda.device_count() >= cards,
@@ -3435,6 +4121,7 @@ def main_cards(cards):
     precision.exact_f32(dev)
     phase_build()
     phase_mesh(dev, weights.random_params(0), smi, cards)
+    phase_parallel(dev, weights.random_params(0), smi, cards)
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3450,5 +4137,7 @@ if __name__ == "__main__":
         mesh_child(*sys.argv[2:])
     elif sys.argv[1:2] == [MESH_NCCL_CHILD]:
         mesh_nccl_child(*sys.argv[2:])
+    elif sys.argv[1:2] == [PARALLEL_CHILD]:
+        parallel_child(*sys.argv[2:])
     else:
         main()

@@ -141,19 +141,20 @@ def add_train_args(p, max_iter, lr, lr_iter, snapshot_dir):
 
 
 def add_mesh_arg(p):
-    """--mesh: data parallelism over torch.distributed ranks (launch one
+    """--mesh: a device mesh over torch.distributed ranks (launch one
     process per device with torchrun)."""
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="Device mesh, e.g. '8x1' (data-parallel over 8 "
-                        "chips) or '4x2' (DP x tensor-parallel). 'auto' = "
-                        "all devices data-parallel. Default: single device. "
-                        "In the port a device is a torch.distributed rank "
-                        "(torchrun --nproc-per-node N ... --mesh Nx1); the "
-                        "'model' axis is out of scope and raises.")
+                        "devices) or '4x2' (DP x tensor-parallel: wide "
+                        "layers split over the 2 ranks of each row). "
+                        "'auto' = all devices data-parallel. Default: "
+                        "single device. A device is a torch.distributed "
+                        "rank: torchrun --nproc-per-node N ... --mesh DxM "
+                        "with D x M = N.")
     return p
 
 
-def build_mesh(spec, device="cpu"):
+def build_mesh(spec, device):
     """'auto' | 'NxM' -> ``parallel.make_mesh`` (None: no mesh).
 
     Under a launcher (torchrun's environment) torch.distributed is brought

@@ -116,11 +116,12 @@ class InputPipeline:
         (``data.native``); raises ``native.NativeUnavailable`` where its
         library cannot be built or opened.
       process_shard: (index, count) of this process's shard of every epoch.
-        None takes (rank, world size) from torch.distributed; with more than
-        one process a ``mesh`` must then be given (synchronized
-        data-parallel training), as the JAX package asks for a sharding.
-      mesh: the data-parallel mesh (``parallel.make_mesh``) the batches
-        feed.
+        None takes the rank's batch shard of ``mesh`` (the ranks of one
+        "model" group read the same rows), and without a mesh (rank, world
+        size) from torch.distributed; with more than one process a ``mesh``
+        must then be given (synchronized data-parallel training), as the
+        JAX package asks for a sharding.
+      mesh: the mesh (``parallel.make_mesh``) the batches feed.
       device: where the batches go.
     """
 
@@ -133,10 +134,14 @@ class InputPipeline:
         self.yield_raw = yield_raw
         self.use_native = use_native
         self.device = torch.device(device)
+        if process_shard is None and mesh is not None:
+            # the ranks of a "model" group read the same rows
+            process_shard = (mesh_lib.data_index(mesh),
+                             mesh_lib.batch_shard_count(mesh))
         if process_shard is None:
             process_shard = (mesh_lib.process_index(),
                              mesh_lib.process_count())
-            if process_shard[1] > 1 and mesh is None:
+            if process_shard[1] > 1:
                 # per-process shards without a synchronized step would
                 # silently train n independent models on 1/n of the data
                 raise ValueError(

@@ -17,10 +17,12 @@ cascade's two kernels run, and TF32 is turned off first
 (``precision.exact_f32``). Each returns a dict of metrics; the reference's
 values are in BASELINE.md rows 1-13.
 
-``mesh=`` (``parallel.make_mesh``) spreads each batch over the ranks: every
-rank walks the same global batch list, uploads and runs only its rows, and
-the outputs are all-gathered before the metrics, so every rank reports the
-same numbers. ``batch_size`` is the global batch, as in the JAX package.
+``mesh=`` (``parallel.make_mesh``, any layout) spreads each batch over the
+mesh's batch axes: every rank walks the same global batch list, uploads and
+runs only its rows (the ranks of a "model" group the same rows, with the
+params sharded over them), and the outputs are all-gathered before the
+metrics, so every rank reports the same numbers. ``batch_size`` is the
+global batch, as in the JAX package.
 """
 
 import collections
@@ -152,21 +154,26 @@ def _run(dataset, cfg, batch_size, step, params, util_feed, device,
         drained += 1
 
 
-def _device_params(params, device):
+def _device_params(params, device, mesh=None):
     """``params`` on ``device``, TF32 off there first. A TF-layout numpy tree
     is converted; a torch tree already on ``device`` (a training run's, for
     an in-training eval) is used as it is, with no copy: the harnesses run
-    under ``torch.inference_mode``, so no gradient reaches it."""
+    under ``torch.inference_mode``, so no gradient reaches it. On a mesh
+    with a "model" axis the params take its tensor-parallel layout
+    (``parallel.shard_params``; a tree already sharded is kept)."""
     device = precision.exact_f32(device)
     leaf = params
     while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
+        leaf = next(v for v in leaf.values() if not mesh_lib.is_shard(v))
     if not isinstance(leaf, torch.Tensor):
-        return params_from_jax(params, device), device
-    index = device.index if device.index is not None else (
-        torch.cuda.current_device() if device.type == "cuda" else None)
-    if leaf.device.type != device.type or leaf.device.index != index:
-        raise ValueError(f"params lie on {leaf.device}, not on {device}")
+        params = params_from_jax(params, device)
+    else:
+        index = device.index if device.index is not None else (
+            torch.cuda.current_device() if device.type == "cuda" else None)
+        if leaf.device.type != device.type or leaf.device.index != index:
+            raise ValueError(f"params lie on {leaf.device}, not on {device}")
+    if mesh is not None:
+        params = mesh_lib.shard_params(mesh, params)
     return params, device
 
 
@@ -252,7 +259,7 @@ def eval2d_gt_cropped(posenet_params, dataset, batch_size=32, progress=None,
     :82, thresholds 0-30 px in 20 steps :87). ``max_batches`` bounds the
     pass.
     """
-    params, device = _device_params(posenet_params, device)
+    params, device = _device_params(posenet_params, device, mesh)
     util = EvalUtil()
     _run(dataset, GT_CROP_CONFIG, batch_size, step_gt_cropped, params,
          _feed_visible(util), device, progress, max_batches=max_batches,
@@ -270,7 +277,7 @@ def eval2d_full_image(params, dataset, batch_size=16, use_wrist_coord=True,
     the network still sees 240x320 but coords are mapped back to the
     320x320 RHD frame (row 5). ``max_batches`` bounds the pass.
     """
-    params, device = _device_params(params, device)
+    params, device = _device_params(params, device, mesh)
     util = EvalUtil()
     _run(dataset, full_image_config(use_wrist_coord, scale_to_size),
          batch_size, step_full_image, params, _feed_visible(util), device,
@@ -286,7 +293,7 @@ def eval3d_lifting(variant, lifting_params, dataset, batch_size=32,
     root-centered GT :88-96, thresholds 0-50 mm :101, every keypoint counted
     visible :98).
     """
-    params, device = _device_params(lifting_params, device)
+    params, device = _device_params(lifting_params, device, mesh)
     util = EvalUtil()
     _run(dataset, GT_CROP_CONFIG, batch_size,
          functools.partial(step_lifting, variant), params, _feed_all(util),
@@ -303,7 +310,7 @@ def eval3d_from_posenet(variant, params, dataset, batch_size=32,
     is eval3d.py:88-101. ``params`` holds the PoseNet2D and PosePrior (and,
     for 'proposed', ViewpointNet) scopes.
     """
-    params, device = _device_params(params, device)
+    params, device = _device_params(params, device, mesh)
     util = EvalUtil()
     _run(dataset, FROM_POSENET_CONFIG, batch_size,
          functools.partial(step_from_posenet, variant), params,
@@ -322,7 +329,7 @@ def eval_full_pipeline(params, dataset, batch_size=16, progress=None,
     :99-101). Works on the STB (paper Figure 9) and RHD evaluation sets.
     ``max_batches`` bounds the pass.
     """
-    params, device = _device_params(params, device)
+    params, device = _device_params(params, device, mesh)
     util = EvalUtil()
     _run(dataset, FULL_PIPELINE_CONFIG, batch_size, step_full_pipeline,
          params, _feed_visible(util), device, progress,

@@ -9,6 +9,7 @@ conv6_1(512) -> conv6_2(2), bilinearly upsampled to the input resolution
 
 from hand3d_tpu_torch.ops import nn
 from hand3d_tpu_torch.ops.image import resize_bilinear
+from hand3d_tpu_torch.parallel import spatial
 
 SCOPE = "HandSegNet"
 
@@ -39,17 +40,24 @@ def init(rng):
     return params
 
 
-def apply(params, image, compute_dtype=None):
+def apply(params, image, compute_dtype=None, constrain=None):
     """image [B, H, W, 3] -> list of one [B, H, W, 2] segmentation scoremap.
-    ``compute_dtype``: the convs' (``ops.nn.conv2d``)."""
+    ``compute_dtype``: the convs' (``ops.nn.conv2d``). ``constrain``: the
+    spatial-partitioning hook (``parallel.spatial_constrainer``), applied
+    after each conv block as in the JAX package; the scoremap is whole
+    again before the upsampling."""
     _, h, w, _ = image.shape
     x = image.permute(0, 3, 1, 2).contiguous()
-    for layer in LAYERS:
-        if layer == "pool":
-            x = nn.max_pool_2x2(x)
-            continue
-        name, _, _, relu = layer
-        x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
-        if relu:
-            x = nn.leaky_relu(x)
+    with spatial.region(constrain):
+        for layer in LAYERS:
+            if layer == "pool":
+                x = nn.max_pool_2x2(x)
+                continue
+            name, _, _, relu = layer
+            x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
+            if relu:
+                x = nn.leaky_relu(x)
+            if constrain is not None:
+                x = constrain(x)
+        x = spatial.whole(x)
     return [resize_bilinear(x.permute(0, 2, 3, 1), (h, w))]

@@ -10,6 +10,7 @@ then two units of concat(scoremap, encoding) -> 5 x 7x7 conv(128) ->
 import torch
 
 from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.parallel import spatial
 
 SCOPE = "PoseNet2D"
 NUM_KP = 21
@@ -56,26 +57,57 @@ def init(rng):
     return params
 
 
-def apply(params, image_crop, compute_dtype=None):
-    """image_crop [B, H, W, 3] -> three [B, H/8, W/8, 21] scoremaps.
-    ``compute_dtype``: the convs' (``ops.nn.conv2d``)."""
+def apply_trunk(params, image_crop, compute_dtype=None, constrain=None):
+    """Encoder + initial 1x1 head: image_crop [B, H, W, 3] -> (encoding,
+    scoremap), NCHW [B, 128, H/8, W/8] and [B, 21, H/8, W/8]: everything
+    before the two structurally identical refinement units, which the
+    pipeline-parallel layer (``parallel.pipeline``) runs apart.
+
+    ``constrain``: the spatial-partitioning hook
+    (``parallel.spatial_constrainer``), applied after each encoder conv as
+    in the JAX package; the encoding leaves the constrained region whole.
+    """
     x = image_crop.permute(0, 3, 1, 2).contiguous()
-    for layer in ENCODER:
-        if layer == "pool":
-            x = nn.max_pool_2x2(x)
-        else:
+    with spatial.region(constrain):
+        for layer in ENCODER:
+            if layer == "pool":
+                x = nn.max_pool_2x2(x)
+                continue
             x = nn.conv2d_relu(x, params[layer[0]],
                                compute_dtype=compute_dtype)
-    encoding = x
+            if constrain is not None:
+                x = constrain(x)
+        encoding = spatial.whole(x)
     x = nn.conv2d_relu(encoding, params["conv5_1"],
                        compute_dtype=compute_dtype)
-    scoremaps = [nn.conv2d(x, params["conv5_2"], compute_dtype=compute_dtype)]
+    return encoding, nn.conv2d(x, params["conv5_2"],
+                               compute_dtype=compute_dtype)
+
+
+def apply_refinement_unit(layer_params, scoremap, encoding,
+                          compute_dtype=None):
+    """One refinement unit: concat(scoremap, encoding) -> new scoremap, all
+    NCHW. ``layer_params``: the unit's 7 conv layer dicts in order; the
+    caller names them, so the reference layout (conv6_* / conv7_*) and the
+    pipeline's stage-stacked one share this code."""
+    x = torch.cat([scoremap, encoding], dim=1)
+    layer_params = list(layer_params)
+    for i, p in enumerate(layer_params):
+        x = nn.conv2d(x, p, compute_dtype=compute_dtype)
+        if i < len(layer_params) - 1:
+            x = nn.leaky_relu(x)
+    return x
+
+
+def apply(params, image_crop, compute_dtype=None, constrain=None):
+    """image_crop [B, H, W, 3] -> three [B, H/8, W/8, 21] scoremaps.
+    ``compute_dtype``: the convs' (``ops.nn.conv2d``); ``constrain``: see
+    :func:`apply_trunk`."""
+    encoding, scoremap = apply_trunk(params, image_crop, compute_dtype,
+                                     constrain)
+    scoremaps = [scoremap]
     for unit in range(NUM_REFINEMENT_UNITS):
-        layers = refinement_layers(unit)
-        x = torch.cat([scoremaps[-1], encoding], dim=1)
-        for i, (name, _, _) in enumerate(layers):
-            x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
-            if i < len(layers) - 1:
-                x = nn.leaky_relu(x)
-        scoremaps.append(x)
+        scoremaps.append(apply_refinement_unit(
+            [params[name] for name, _, _ in refinement_layers(unit)],
+            scoremaps[-1], encoding, compute_dtype))
     return [s.permute(0, 2, 3, 1).contiguous() for s in scoremaps]

@@ -19,6 +19,13 @@ A layer dict in the int8 layout ({"weights_q", ...},
 ``compute_dtype``; one in the QAT layout ({"weights_fq", ...},
 ``ops.quant.qat_view``) fake-quantizes its weights and input, then runs the
 float path.
+
+A layer dict sharded over a mesh's "model" axis (it carries a
+``parallel.mesh.ModelShard`` under ``SHARD_KEY``; ``parallel.shard_params``)
+runs as a column-parallel layer: the input through ``copy_to_model``, this
+rank's output channels, then ``gather_channels``; in the int8 and QAT
+layouts too. An activation split by rows (``parallel.spatial``) runs each
+conv after a halo exchange.
 """
 
 import contextlib
@@ -30,6 +37,8 @@ import torch.nn.functional as F
 
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.data import augment
+from hand3d_tpu_torch.parallel import collectives, spatial
+from hand3d_tpu_torch.parallel.mesh import SHARD_KEY
 
 NEG_SLOPE_OF_RELU = 0.01  # general.py:28
 CONV_BIAS_INIT = 1e-4  # general.py:50
@@ -37,8 +46,49 @@ FC_BIAS_INIT = 1e-4  # general.py:126
 
 
 def leaky_relu(x):
-    """max(x, 0.01 x) — general.py:30-33."""
-    return torch.maximum(x, NEG_SLOPE_OF_RELU * x)
+    """max(x, 0.01 x) — general.py:30-33. Keeps a row split's mark."""
+    return spatial.mark(torch.maximum(x, NEG_SLOPE_OF_RELU * x),
+                        spatial.rows_of(x))
+
+
+def _kernel_key(params):
+    return next(k for k in ("weights", "weights_q", "weights_fq")
+                if k in params)
+
+
+def _sharded(op, x, params, *args):
+    """``op(x, params, *args)`` of a layer dict sharded over "model".
+
+    A conv or dense layer shards its output channels (conv OIHW dim 0,
+    dense dim 1), and so do its 1-dim leaves (biases, weight scales); it
+    runs column-parallel: the whole input through ``copy_to_model`` (its
+    gradient all-reduced), this rank's channels, then ``gather_channels``
+    (output whole again, gradient sliced). A leaf sharded otherwise raises.
+    A transposed conv (its TF-layout last dim is its input) gathers its
+    sharded leaves and runs whole.
+    """
+    shard = params[SHARD_KEY]
+    local = {k: v for k, v in params.items() if k != SHARD_KEY}
+    if op is conv2d_transpose:
+        for k in local:
+            if shard.dim(k) is not None:
+                local[k] = collectives.gather_channels(local[k], shard.group,
+                                                       shard.dim(k))
+        return op(x, local, *args)
+    kernel = local[_kernel_key(local)]
+    out_dim = 0 if kernel.ndim == 4 else kernel.ndim - 1
+    for k, v in local.items():
+        if k in ("weights", "weights_q", "weights_fq", "biases",
+                 "weight_scale") and shard.dim(k) != (
+                     out_dim if v.ndim > 1 else 0):
+            raise ValueError(
+                f"a sharded {op.__name__} layer splits its output channels; "
+                f"its {k!r} is split on dim {shard.dim(k)}")
+    if spatial.rows_of(x) is not None:
+        raise ValueError("spatial partitioning takes replicated params; "
+                         "this layer is sharded over 'model'")
+    y = op(collectives.copy_to_model(x, shard.group), local, *args)
+    return collectives.gather_channels(y, shard.group, 1)
 
 
 def _same_pads(size, k, s):
@@ -69,8 +119,14 @@ def conv2d(x, params, stride=1, compute_dtype=None):
     operands, ``precision.tf32_convs``). int8 and QAT layer dicts: see the
     module docstring.
     """
+    if SHARD_KEY in params:
+        return _sharded(conv2d, x, params, stride, compute_dtype)
     if _act_observer is not None:
         _act_observer(x, params)
+    rows = spatial.rows_of(x)
+    if rows is not None and ("weights_q" in params or "weights_fq" in params):
+        raise ValueError("spatial partitioning runs the float and bf16 "
+                         "convs; int8 and QAT scale each sample as a whole")
     if "weights_q" in params:
         from hand3d_tpu_torch.ops import quant
 
@@ -79,12 +135,16 @@ def conv2d(x, params, stride=1, compute_dtype=None):
         from hand3d_tpu_torch.ops import quant
 
         x, params = quant.fake_quant_layer(x, params)
+    w, b = params["weights"], params["biases"]
+    if rows is not None:
+        # replicated params applied to this rank's rows: their gradient is
+        # the sum of the ranks'
+        w, b = (collectives.copy_to_model(t, rows.group) for t in (w, b))
     if compute_dtype is None:
-        return _conv2d(x, params["weights"], params["biases"], stride)
+        return _conv2d(x, w, b, stride, rows)
     with precision.tf32_convs(x.device):
-        return _conv2d(rounded(x, compute_dtype),
-                       rounded(params["weights"], compute_dtype),
-                       params["biases"], stride)
+        return _conv2d(rounded(x, compute_dtype), rounded(w, compute_dtype),
+                       b, stride, rows)
 
 
 def same_padded(x, kh, kw, stride):
@@ -99,9 +159,16 @@ def same_padded(x, kh, kw, stride):
     return F.pad(x, (pl, pr, pt, pb)), [0, 0]
 
 
-def _conv2d(x, w, b, stride):
-    x, padding = same_padded(x, w.shape[2], w.shape[3], stride)
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+def _conv2d(x, w, b, stride, rows=None):
+    if rows is None:
+        x, padding = same_padded(x, w.shape[2], w.shape[3], stride)
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    # this rank's rows: the halo rows stand for the SAME padding of H
+    if stride != 1:
+        raise ValueError("spatial partitioning runs stride-1 convs")
+    x = rows.halo(x, w.shape[2])
+    pl, pr = _same_pads(x.shape[3], w.shape[3], 1)
+    return spatial.mark(F.conv2d(F.pad(x, (pl, pr, 0, 0)), w, b), rows)
 
 
 def conv2d_relu(x, params, stride=1, compute_dtype=None):
@@ -120,6 +187,8 @@ def conv2d_transpose(x, params, stride=2, compute_dtype=None):
     pixel at the end. An int8 layer dict is dequantized first, a QAT one
     fake-quantizes its weights (not its input), as in the JAX package.
     """
+    if SHARD_KEY in params:
+        return _sharded(conv2d_transpose, x, params, stride, compute_dtype)
     if "weights_q" in params:
         from hand3d_tpu_torch.ops import quant
 
@@ -153,8 +222,12 @@ def conv2d_transpose_relu(x, params, stride=2, compute_dtype=None):
 
 
 def max_pool_2x2(x):
-    """2x2 stride-2 VALID max pool of NCHW ``x`` — general.py:61-65."""
-    return F.max_pool2d(x, 2, 2)
+    """2x2 stride-2 VALID max pool of NCHW ``x`` — general.py:61-65. Rows
+    split over ranks pool where they lie: an even number a rank."""
+    rows = spatial.rows_of(x)
+    if rows is not None:
+        rows.check_pool(x)
+    return spatial.mark(F.max_pool2d(x, 2, 2), rows)
 
 
 def avg_pool(x, size, stride=None):
@@ -185,6 +258,8 @@ def dense(x, params, compute_dtype=None):
     matmul in exact f32 (these layers are small; TF32 stays off for cuBLAS).
     int8 and QAT layer dicts: see the module docstring.
     """
+    if SHARD_KEY in params:
+        return _sharded(dense, x, params, compute_dtype)
     if _act_observer is not None:
         _act_observer(x, params)
     if "weights_q" in params:

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from hand3d_tpu_torch import precision
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 
 QMAX = 127.0
 EPS = 1e-12  # guards all-zero tensors; the scale of a zero tensor is moot
@@ -182,12 +183,15 @@ def calibrate_act_scales(run_float, params, batches, margin=1.0):
     return out
 
 
-def _eligible(w, min_in_chan, min_out_chan):
+def _eligible(w, min_in_chan, min_out_chan, shard=None):
     """Shared PTQ / QAT layer gate: the two paths quantize the same set.
     ``min_in_chan`` keeps the early narrow layers float, ``min_out_chan``
-    the prediction heads (21- and 2-channel scoremaps)."""
-    return (w.shape[_ic_axis(w)] >= min_in_chan
-            and w.shape[_oc_axis(w)] >= min_out_chan)
+    the prediction heads (21- and 2-channel scoremaps). ``shard``: the
+    layer's ModelShard, whose slice of the output channels counts whole."""
+    out = w.shape[_oc_axis(w)]
+    if shard is not None and shard.dim("weights") == _oc_axis(w):
+        out = shard.width
+    return w.shape[_ic_axis(w)] >= min_in_chan and out >= min_out_chan
 
 
 def unit_act_scales(params, min_in_chan=128, min_out_chan=32,
@@ -269,6 +273,9 @@ def quantize_params_int8(params, min_in_chan=128, min_out_chan=32,
     gradient reaches the new leaves.
     """
     _check_paths(params, act_scales)
+    if mesh_lib.is_sharded(params):
+        raise ValueError("quantize the whole tree, then shard it "
+                         "(parallel.shard_params covers the int8 layout)")
     act_scales = {tuple(k): v for k, v in (act_scales or {}).items()}
 
     def walk(p, path, include):
@@ -391,9 +398,14 @@ def qat_view(params, min_in_chan=128, min_out_chan=32,
         if not isinstance(p, dict):
             return p
         if _is_layer(p):
-            if not _eligible(p["weights"], min_in_chan, min_out_chan):
+            shard = p.get(mesh_lib.SHARD_KEY)
+            if not _eligible(p["weights"], min_in_chan, min_out_chan, shard):
                 return p
             out = {"weights_fq": p["weights"], "biases": p["biases"]}
+            if shard is not None:  # the same slices, renamed
+                out[mesh_lib.SHARD_KEY] = shard._replace(dims=tuple(
+                    ("weights_fq" if k == "weights" else k, d)
+                    for k, d in shard.dims))
             s_in = act_scales.get(path)
             if s_in is not None:
                 out["act_scale_fq"] = s_in

@@ -160,11 +160,13 @@ class HandPoseEstimator:
       calibration_images: [N, H, W, 3] representative images, required by
         "int8_static": the float cascade runs on them on the device and its
         activation ranges set the static scales.
-      mesh: a data-parallel mesh (``parallel.make_mesh``): every rank
-        builds the estimator and calls ``predict`` with the same images;
-        each computes its rows of every padded batch and the outputs are
-        all-gathered, so every rank returns the whole answer. batch_size
-        must divide over the mesh's batch shards.
+      mesh: a mesh of any layout (``parallel.make_mesh``,
+        ``make_multislice_mesh``): every rank builds the estimator and
+        calls ``predict`` with the same images; each computes its rows of
+        every padded batch (the ranks of a "model" group the same rows) and
+        the outputs are all-gathered, so every rank returns the whole
+        answer. The params take the mesh's tensor-parallel layout after any
+        ``quantize``. batch_size must divide over the mesh's batch shards.
       phase_pack: the JAX package's TPU lane packing; out of scope, raises.
 
     On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
@@ -191,6 +193,10 @@ class HandPoseEstimator:
         self.params = quantized_device_params(
             params, self.device, quantize, quantize_scope,
             calibration_images, left_hand, seg_scale, phase_pack)
+        if mesh is not None:
+            self.params = DeviceParams(
+                mesh_lib.shard_params(mesh, self.params), self.device,
+                self.params.quantize)
         self.batch_size = batch_size
         self.input_hw = tuple(input_hw)
         self.hand_side = hand_side_tensor(left_hand, self.rows[1],
@@ -308,13 +314,18 @@ class AutoBucketEstimator:
     def __init__(self, params, batch_size=16, snap_hws=None, max_buckets=8,
                  *, device, quantize=None, quantize_scope=None,
                  calibration_images=None, **kwargs):
-        if kwargs.get("mesh") is not None:
+        mesh = kwargs.get("mesh")
+        if mesh is not None:
             device = mesh_lib.rank_device(device)
         self.device = precision.exact_f32(device)
         self.params = quantized_device_params(
             params, self.device, quantize, quantize_scope,
             calibration_images, kwargs.get("left_hand", True),
             kwargs.get("seg_scale", 1.0), kwargs.get("phase_pack", False))
+        if mesh is not None:  # sharded once, for every bucket
+            self.params = DeviceParams(
+                mesh_lib.shard_params(mesh, self.params), self.device,
+                self.params.quantize)
         self.batch_size = batch_size
         self.kwargs = kwargs
         self.snap_hws = [tuple(hw) for hw in snap_hws] if snap_hws else None

@@ -11,7 +11,7 @@ hand3d_tpu/train/checkpoints.py).
     which ``hand3d_tpu.weights.load_npz`` and the port's ``--weights`` read.
 
 The JAX package's Orbax checkpoints are a JAX-ecosystem format and are not
-ported (ROADMAP.md, out of scope).
+ported yet (ROADMAP.md §1 queues them).
 """
 
 import io

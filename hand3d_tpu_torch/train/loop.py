@@ -9,11 +9,14 @@ run with exit code 17; SIGTERM / SIGINT save a snapshot and stop.
 windows of that many steps (``trainer.make_resident_train_step``: on a CUDA
 device, replays of one captured step).
 
-``mesh`` trains data-parallel over the ranks of a ``parallel.make_mesh``:
-every rank starts from rank 0's params, is fed its rows of each global batch
-and takes the same update. Rank 0 alone writes snapshots and the metrics log
-and reports (each write followed by a barrier); a SIGTERM / SIGINT on any
-rank stops every rank at the same step, agreed at each step boundary.
+``mesh`` trains over the ranks of a ``parallel.make_mesh`` (or
+``make_multislice_mesh``): every rank starts from rank 0's params, is fed its
+rows of each global batch and takes the same update; with a "model" axis the
+state is sharded (``trainer.shard_state``) and gathered whole for each
+snapshot, so a snapshot does not depend on the mesh and resumes onto any
+other. Rank 0 alone writes snapshots and the metrics log and reports (each
+write followed by a barrier); a SIGTERM / SIGINT on any rank stops every
+rank at the same step, agreed at each step boundary.
 """
 
 import contextlib
@@ -28,9 +31,10 @@ import numpy as np
 from hand3d_tpu_torch.data.pipeline import epoch_indices, resident_data
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.train import checkpoints
-from hand3d_tpu_torch.train.trainer import (init_state,
+from hand3d_tpu_torch.train.trainer import (gather_state, init_state,
                                             make_resident_train_step,
-                                            make_train_step, tree_leaves)
+                                            make_train_step, shard_state,
+                                            tree_leaves)
 
 WATCHDOG_EXIT_CODE = 17
 
@@ -118,12 +122,14 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
     boundary at or after each configured step, and every step's loss is
     still reported, with the LR the device took for it.
 
-    ``mesh`` (``parallel.make_mesh``): data-parallel training. The pipeline
-    must be sharded over the mesh (``InputPipeline(mesh=...)``); ``--resume``
-    reads on every rank, then every rank takes rank 0's params. Snapshots,
-    the metrics log and ``log`` are rank 0's; the evals run on every rank
-    (``eval_fn`` runs the mesh harness); a stop signal on any rank stops all
-    of them at the same step. The watchdog is per rank.
+    ``mesh`` (``parallel.make_mesh``): data-parallel training, tensor
+    parallel over its "model" axis. The pipeline must be sharded over the
+    mesh (``InputPipeline(mesh=...)``); ``--resume`` reads the whole state
+    on every rank, then every rank takes rank 0's params and the state is
+    sharded. Snapshots (gathered whole), the metrics log and ``log`` are
+    rank 0's; the evals run on every rank (``eval_fn`` runs the mesh
+    harness on the sharded params); a stop signal on any rank stops all of
+    them at the same step. The watchdog is per rank.
     """
     if steps_per_call > 1:
         if mesh is not None:
@@ -156,7 +162,8 @@ def fit(loss_fn, params, optimizer, pipeline, max_iter, *, seed=0,
             start_step = state.step
             log(f"Resumed from {latest} at step {start_step}")
     if mesh is not None:  # every rank starts from rank 0's params
-        mesh_lib.broadcast_(tree_leaves(state.params), mesh)
+        mesh_lib.broadcast_(tree_leaves(state.params))
+        state = shard_state(mesh, state)
     if steps_per_call > 1:
         step_fn = make_resident_train_step(loss_fn, optimizer, remat=remat,
                                            accum_steps=accum_steps)
@@ -262,6 +269,8 @@ class _Loop:
 
     def snapshot(self, state, step):
         if self.snapshot_dir:
+            if self.mesh is not None:  # every rank joins the gathers
+                state = gather_state(self.mesh, state)
             if self.lead:
                 checkpoints.save_snapshot(self.snapshot_dir, state, step=step)
             if self.mesh is not None:

@@ -112,16 +112,23 @@ def posenet_scoremap_loss(scoremap_preds, scoremap_gt, keypoint_vis):
       scoremap_gt: [B, H, W, K] ground truth.
       keypoint_vis: [B, K] bool or float.
     """
-    gh, gw = scoremap_gt.shape[1:3]
     vis = keypoint_vis.to(torch.float32)
     denom = global_sum(vis.sum()) + 0.001
     loss = 0.0
     for pred in scoremap_preds:
-        pred = resize_bilinear(pred, (gh, gw))
-        per_kp = torch.sqrt(torch.mean(torch.square(pred - scoremap_gt),
-                                       dim=(1, 2)))
-        loss = loss + torch.sum(vis * per_kp) / denom
+        loss = loss + scoremap_numerator(pred, scoremap_gt, vis) / denom
     return loss
+
+
+def scoremap_numerator(pred, scoremap_gt, vis):
+    """The numerator of one head's term of ``posenet_scoremap_loss``: the
+    sum over samples and keypoints of vis * sqrt(mean over pixels of
+    (pred - gt)^2), ``pred`` [B, h, w, K] upsampled to the ground truth's
+    [B, H, W, K]; ``vis`` [B, K] float."""
+    pred = resize_bilinear(pred, scoremap_gt.shape[1:3])
+    per_kp = torch.sqrt(torch.mean(torch.square(pred - scoremap_gt),
+                                   dim=(1, 2)))
+    return torch.sum(vis * per_kp)
 
 
 def handsegnet_loss(seg_logits_list, hand_mask):

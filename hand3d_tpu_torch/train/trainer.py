@@ -20,7 +20,9 @@ state, on the params' device, so a CUDA graph can replay it.
 
 ``make_train_step(mesh=)`` is the data-parallel step: each rank is fed its
 rows of the global batch, and the step is the one a single process takes on
-that global batch, up to float reassociation (``DataParallelGrads``).
+that global batch, up to float reassociation (``DataParallelGrads``). On a
+mesh with a "model" axis the state is first sharded (``shard_state``) and
+gathered whole again for a snapshot (``gather_state``).
 """
 
 import functools
@@ -51,11 +53,15 @@ class TrainState(NamedTuple):
 
 
 def tree_leaves(tree):
-    """The tree's tensors in a fixed order (sorted keys, depth first)."""
+    """The tree's tensors in a fixed order (sorted keys, depth first); a
+    sharded layer's ModelShard is not a leaf."""
     out = []
     for key in sorted(tree):
         value = tree[key]
-        out.extend(tree_leaves(value) if isinstance(value, dict) else [value])
+        if isinstance(value, dict):
+            out.extend(tree_leaves(value))
+        elif mesh_lib.is_leaf(value):
+            out.append(value)
     return out
 
 
@@ -65,13 +71,31 @@ def tree_paths(tree, prefix=""):
     for key in sorted(tree):
         path = f"{prefix}/{key}" if prefix else key
         value = tree[key]
-        out.extend(tree_paths(value, path) if isinstance(value, dict)
-                   else [path])
+        if isinstance(value, dict):
+            out.extend(tree_paths(value, path))
+        elif mesh_lib.is_leaf(value):
+            out.append(path)
     return out
 
 
+def tree_unflatten(tree, leaves):
+    """``tree`` with its leaves, in :func:`tree_leaves` order, replaced by
+    ``leaves`` (gradients, say); a layer's ModelShard is kept, so a sharded
+    tree's gradients can be gathered whole (``parallel.gather_params``)."""
+    it = iter(leaves)
+
+    def walk(t):
+        return {k: walk(t[k]) if isinstance(t[k], dict)
+                else next(it) if mesh_lib.is_leaf(t[k]) else t[k]
+                for k in sorted(t)}
+
+    return walk(tree)
+
+
 def tree_map(fn, tree):
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+    """``fn`` of every leaf; a layer's ModelShard is kept as it is."""
+    return {k: tree_map(fn, v) if isinstance(v, dict)
+            else fn(v) if mesh_lib.is_leaf(v) else v
             for k, v in tree.items()}
 
 
@@ -173,6 +197,83 @@ def init_state(params, optimizer):
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
                       params)
     return TrainState(params, optimizer.init(params), 0)
+
+
+def shard_state(mesh, state):
+    """``state`` (whole params and Adam state, as :func:`init_state` makes
+    it) with tensor parallelism over ``mesh``'s "model" axis: the params
+    this rank's slices (``parallel.mesh.shard_params``) and the Adam
+    moments sliced the same way, as the JAX package's ``shard_state``. A
+    mesh whose "model" axis is 1 returns ``state``."""
+    if mesh_lib.model_size(mesh) == 1:
+        return state
+    local = mesh_lib.shard_params(mesh, tree_map(
+        lambda t: t.detach().clone(), state.params))
+    local = tree_map(lambda t: t.requires_grad_(True), local)
+    opt = state.opt_state
+    sharded = torch.optim.Adam(tree_leaves(local), **_adam_args(opt))
+    for (whole, part), slot in zip(
+            zip(tree_leaves(state.params), tree_leaves(local)),
+            _leaf_shards(local)):
+        moments = opt.state.get(whole)
+        if moments:
+            sharded.state[part] = {
+                k: (v if k == "step" else _block(v, slot)).clone()
+                for k, v in moments.items()}
+    return TrainState(local, sharded, state.step)
+
+
+def gather_state(mesh, state):
+    """The whole TrainState of a sharded one (:func:`shard_state`): params
+    and Adam moments all-gathered over "model" (a collective: every rank
+    calls it). What a snapshot holds, whatever the mesh."""
+    if not mesh_lib.is_sharded(state.params):
+        return state
+    from hand3d_tpu_torch.parallel import collectives
+
+    whole = tree_map(lambda t: t.requires_grad_(True),
+                     mesh_lib.gather_params(mesh, state.params))
+    opt = state.opt_state
+    full = torch.optim.Adam(tree_leaves(whole), **_adam_args(opt))
+    for (part, new), slot in zip(
+            zip(tree_leaves(state.params), tree_leaves(whole)),
+            _leaf_shards(state.params)):
+        moments = opt.state.get(part)
+        if moments:
+            full.state[new] = {
+                k: (v.clone() if k == "step" or slot is None else
+                    collectives.all_gather(v, slot[0].group, slot[1]))
+                for k, v in moments.items()}
+    for group in full.param_groups:
+        group["lr"] = opt.param_groups[0]["lr"]
+    return TrainState(whole, full, state.step)
+
+
+def _adam_args(opt):
+    group = opt.param_groups[0]
+    return {"lr": group["lr"], "betas": group["betas"], "eps": group["eps"]}
+
+
+def _leaf_shards(tree):
+    """(ModelShard, dim) of each leaf of :func:`tree_leaves`, in its order,
+    or None for a replicated leaf."""
+    shard = tree.get(mesh_lib.SHARD_KEY)
+    out = []
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            out.extend(_leaf_shards(value))
+        elif mesh_lib.is_leaf(value):
+            dim = shard.dim(key) if shard is not None else None
+            out.append(None if dim is None else (shard, dim))
+    return out
+
+
+def _block(t, slot):
+    if slot is None:
+        return t
+    shard, dim = slot
+    return t.chunk(shard.size, dim)[shard.index]
 
 
 def fuse_preprocess(loss_fn, preprocess_fn, cfg):
@@ -343,10 +444,13 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1,
     this equals the full-batch step; the PoseNet loss normalizes by the
     batch's visibility count, so there it is the mean of microbatch losses.
 
-    ``mesh`` (``parallel.make_mesh``): the data-parallel step. ``batch`` is
-    this rank's rows of the global batch (``InputPipeline`` shards it), and
-    the gradients and loss are the global batch's (``DataParallelGrads``);
-    every rank then applies the same update.
+    ``mesh`` (``parallel.make_mesh`` or ``make_multislice_mesh``): the
+    data-parallel step. ``batch`` is this rank's rows of the global batch
+    (``InputPipeline`` shards it), and the gradients and loss are the
+    global batch's (``DataParallelGrads``); every rank then applies the same
+    update. With a "model" axis the state must be sharded
+    (:func:`shard_state`): sharded params keep sharded gradients and Adam
+    moments.
     """
     if mesh is not None:
         grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
@@ -387,6 +491,16 @@ class DataParallelGrads:
     The ranks' gradients and losses are then summed with ONE all-reduce
     over a flat bucket: every rank holds the same sums, bit for bit, and
     its Adam update is the same.
+
+    On a mesh with a "model" axis (tensor parallelism, params from
+    :func:`shard_state`) the ranks of a "model" group hold the same rows
+    and compute the same replicated tensors; a sharded layer's gradient is
+    the rank's slice. The sum runs over the batch axes only
+    (``parallel.mesh.batch_group``): summing over "model" as well would
+    count a replicated param's gradient M times. A replicated param's
+    gradient is then the first "model" rank's on all of them
+    (``agree_over_model``), so the ranks' replicated params stay bit-equal
+    where the card's backward convolutions are not deterministic.
     """
 
     def __init__(self, loss_fn, mesh, remat=False, accum_steps=1):
@@ -397,7 +511,7 @@ class DataParallelGrads:
         self.mesh = mesh
         self.remat = remat
         self.accum_steps = accum_steps
-        self.group = mesh_lib.data_group(mesh)
+        self.group = mesh_lib.batch_group(mesh)
         self.recorded = None  # the normalizers' shapes, once recorded
 
     def _record(self, params, batch):
@@ -446,6 +560,10 @@ class DataParallelGrads:
             [*grad_sum, loss_sum.reshape(1).to(grad_sum[0].dtype)],
             self.mesh)
         loss_sum = loss_sum.reshape(())
+        if mesh_lib.model_size(self.mesh) > 1:
+            mesh_lib.agree_over_model(
+                [g for g, slot in zip(grad_sum, _leaf_shards(params))
+                 if slot is None], self.mesh)
         if a_steps == 1:
             return loss_sum, grad_sum
         inv = 1.0 / a_steps

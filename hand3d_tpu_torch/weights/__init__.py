@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from hand3d_tpu_torch.models import handsegnet, posenet, poseprior
+from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.weights.convert import (  # noqa: F401
     flat_to_tree, tree_to_flat)
 
@@ -39,11 +40,13 @@ _KEYS = _FLOAT_KEYS + ("weights_q",)
 def params_from_jax(tree, device):
     """TF-layout numpy tree -> torch tree on ``device``.
 
-    Conv kernels ("weights", "weights_fq", "weights_q") go HWIO -> OIHW;
-    dense kernels stay [in, out]. "weights_q" stays int8, every other leaf
-    (biases, scales) is float32: the int8 and QAT layouts of
-    ``hand3d_tpu.ops.quant`` carry across. Other layer dicts (phase-packed)
-    are out of scope and raise.
+    Conv kernels ("weights", "weights_fq", "weights_q") go HWIO -> OIHW,
+    and the stage-stacked kernels of ``parallel.pipeline`` ([S, kh, kw, in,
+    out]) go so stage by stage; dense kernels stay [in, out], the stacked
+    experts of ``parallel.expert`` ([E, in, out]) too. "weights_q" stays
+    int8, every other leaf (biases, scales) is float32: the int8 and QAT
+    layouts of ``hand3d_tpu.ops.quant`` carry across. Other layer dicts
+    (phase-packed) are out of scope and raise.
     """
     out = {}
     for key, value in tree.items():
@@ -55,24 +58,33 @@ def params_from_jax(tree, device):
                              "carries the float, int8 and QAT layouts only")
         arr = np.asarray(value, np.int8 if key == "weights_q"
                          else np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+        if arr.ndim >= 4:  # [..., kh, kw, in, out] -> [..., out, in, kh, kw]
+            lead = tuple(range(arr.ndim - 4))
+            arr = arr.transpose(*lead, *(d + len(lead) for d in (3, 2, 0, 1)))
         out[key] = torch.tensor(arr, device=device)
     return out
 
 
 def params_to_jax(tree):
     """Torch tree -> TF-layout numpy tree, the inverse of
-    :func:`params_from_jax`: 4-dim kernels go OIHW -> HWIO, "weights_q"
-    stays int8, everything else is float32."""
+    :func:`params_from_jax`: kernels of 4 dims and more go OIHW -> HWIO
+    (stage by stage), "weights_q" stays int8, everything else is float32.
+    A tree sharded over a mesh's "model" axis is gathered first
+    (``parallel.gather_params``)."""
     out = {}
     for key, value in tree.items():
         if isinstance(value, dict):
             out[key] = params_to_jax(value)
             continue
+        if mesh_lib.is_shard(value):
+            raise ValueError("a tree sharded over 'model': gather it first "
+                             "(parallel.gather_params)")
         arr = value.detach().cpu().numpy()
         arr = arr.astype(np.int8 if key == "weights_q" else np.float32)
-        out[key] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+        if arr.ndim >= 4:
+            lead = tuple(range(arr.ndim - 4))
+            arr = arr.transpose(*lead, *(d + len(lead) for d in (2, 3, 1, 0)))
+        out[key] = arr
     return out
 
 

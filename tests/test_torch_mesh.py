@@ -498,14 +498,21 @@ def test_sigterm_on_one_rank_stops_every_rank_at_one_step(ranks):
 
 
 def test_mesh_of_other_sizes_raises():
+    """A mesh must cover the ranks, as in JAX; the model axis, the
+    multislice mesh and spatial partitioning are ported (one process makes
+    their 1-rank forms)."""
     with pytest.raises(AssertionError, match=r"mesh 3x1 != 1 devices"):
         mesh_lib.make_mesh(3, 1)
-    with pytest.raises(NotImplementedError, match="Out of scope this round"):
+    with pytest.raises(AssertionError, match=r"mesh 1x2 != 1 devices"):
         mesh_lib.make_mesh(1, 2)
-    for fn in (lambda: mesh_lib.make_multislice_mesh(2),
-               lambda: mesh_lib.spatial_constrainer(None)):
-        with pytest.raises(NotImplementedError, match="Out of scope"):
-            fn()
+    with pytest.raises(AssertionError, match=r"mesh 2x1x1 != 1 devices"):
+        mesh_lib.make_multislice_mesh(2, 1, 1)
+    sliced = mesh_lib.make_multislice_mesh(1, 1, 1)
+    assert sliced.mesh_dim_names == ("slice", "data", "model")
+    assert mesh_lib.batch_shard_count(sliced) == 1
+    x = torch.arange(16.0).reshape(1, 1, 4, 4)
+    assert torch.equal(mesh_lib.spatial_constrainer(mesh_lib.make_mesh())(x),
+                       x)
     mesh = mesh_lib.make_mesh()
     assert mesh.mesh_dim_names == ("data", "model")
     assert mesh_lib.batch_shard_count(mesh) == 1

@@ -99,7 +99,7 @@ def test_posenet_in_training_eval_and_warm_start(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--mesh", "3x1"], AssertionError, r"mesh 3x1 != 1 devices"),
-    (["--mesh", "2x2"], NotImplementedError, "Out of scope this round"),
+    (["--mesh", "2x2"], AssertionError, r"mesh 2x2 != 1 devices"),
     (["--mesh", "2x1", "--steps-per-call", "2"], ValueError,
      "steps_per_call > 1 does not compose with a mesh"),
     (["--steps-per-call", "4", "--no-fused"], ValueError, "yield_raw"),
