@@ -11,7 +11,8 @@ gloo ranks on one.
 Phases, in order; any failure raises and exits non-zero before the result
 line is printed:
 
-1. device: nvidia-smi's name and power limit, torch and CUDA versions;
+1. device: nvidia-smi's name and power limit, torch and CUDA versions,
+   which of the modules an Orbax reader and the tools could use import;
    a CUDA device is required;
 2. build: both CUDA kernels compiled from csrc/ with nvcc (sm_90a);
 3. kernel parity: each kernel against its plain PyTorch twin, bit for bit,
@@ -162,7 +163,8 @@ line is printed:
    draws (MESH_LOSS_RTOL, the TRAIN_* kink-aware bounds), ms a step beside
    one process's plain step and the bytes each collective moved; (b) an SP
    grad step of HandSegNet at 240x320 (1x2; 1x4 at 256x320 on four cards),
-   held to one process the same way; (c) a GPipe train step of PoseNet at
+   held to one process the same way, with the plain tree and with conv1_2
+   phase-packed; (c) a GPipe train step of PoseNet at
    256x256 (data x stage 2, 2 microbatches), loss and gradients held to the
    sequential loss's, the forward ticks timed beside the bubble fraction;
    (d) an EP grad step of the MoE layer (4 experts, 64 -> 32), held to the
@@ -173,7 +175,27 @@ line is printed:
    width with --mesh Dx2 for 2 steps (rank 0's params broadcast to every
    rank, the state sharded, each snapshot gathered whole), rank 0's
    snapshot equal to the gathered state bit for bit, then --resume from it
-   on (2D)x1 for one more step, the ranks bit-equal after each run.
+   on (2D)x1 for one more step, the ranks bit-equal after each run;
+16. phase_pack: conv1_2 of HandSegNet and PoseNet phase-packed
+   (ops.phasepack) at 240x320: the tree packed on the card equal to the
+   CPU's packing of the TF-layout tree; the fused conv + ReLU + pool held
+   to the plain layer (PACK_LAYER_*) and timed at batches 1 and 32; the
+   packed f32 and int8_seg_pp (HandSegNet int8, then packed) cascades held
+   flip-aware to the plain f32 and int8_seg ones on the card, both kernels
+   to their twins on the packed cascades' inputs;
+   HandPoseEstimator(phase_pack=True) equal to the packed cascade and an
+   export with phase_pack=True (its header saying so), loaded in a child
+   process, equal to it bit for bit; frames/s of f32, f32 packed, int8_seg
+   and int8_seg_pp at batches 1 and 32, timed in alternating rounds, with
+   the card's name and power limit;
+17. tools: hand3d_tpu_torch.tools.create_binary_db on PNG fixtures of the
+   RHD layout (PIL), read back by the port's RHD reader equal to the PNGs
+   and annotations; run_baseline_parity's drill, all 13 BASELINE rows
+   judged over synthetic RHD and STB files, reference-format pickles and
+   retrained snapshots through the four harnesses on the card; bench_input
+   (the C++ streamer and memmap, records/s beside the resident PoseNet
+   step); release_check with its preset step alone, its record stamped with
+   nvidia-smi's line.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -183,6 +205,7 @@ kernels line, nvidia-smi's line, and {"ok": true, "device": {...}}.
 import contextlib
 import hashlib
 import http.client
+import importlib.util
 import io
 import json
 import os
@@ -215,7 +238,8 @@ from hand3d_tpu_torch.eval import harnesses
 from hand3d_tpu_torch.models import cascade, handsegnet, posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.models.poseprior import VARIANTS, PosePriorNetwork
-from hand3d_tpu_torch.ops import keypoints, nn, quant, segmentation
+from hand3d_tpu_torch.ops import (keypoints, nn, phasepack, quant,
+                                  segmentation)
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
 from hand3d_tpu_torch.parallel import collectives, expert, pipeline
@@ -226,7 +250,9 @@ from hand3d_tpu_torch.batching import select_serving_outputs
 from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
                                       DynamicBatcher, HandPoseEstimator,
                                       _map_back, _resize_to, normalize_images)
-from hand3d_tpu_torch.train import losses, loop, trainer
+from hand3d_tpu_torch.tools import (bench_input, create_binary_db,
+                                    run_baseline_parity)
+from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
 from hand3d_tpu_torch.weights import tf_ckpt
 
 CPU = torch.device("cpu")
@@ -466,6 +492,28 @@ PARALLEL_EP_ATOL = 1e-5
 PARALLEL_SERVE_BATCH = 8
 PARALLEL_FIT_RECORDS = 16
 PARALLEL_FIT_STEPS = 2  # on DxM, then one more resumed on (D*M)x1
+# phase packing: conv1_2 of HandSegNet and PoseNet phase-packed
+# (ops.phasepack) and fused with the pool after it. The packed layer sums
+# the plain layer's products and exact zeros in another order, so the
+# packed cascades are held flip-aware to the plain ones on the card, f32 at
+# the f32 bounds, int8_seg_pp (int8 HandSegNet, then packed) at the INT8_*
+# bounds (int8 rounds its inputs: a float step moves a grid choice now and
+# then); the fused layer alone to the plain conv + ReLU + pool at
+# PACK_LAYER_ATOL + PACK_LAYER_RTOL * |plain|, the JAX package's test bounds
+PACK_BATCHES = (1, 32)
+PACK_ITERS = {1: 20, 32: 5}  # predicts a mode and round, two rounds
+PACK_PARITY_IMAGES = 2
+PACK_LAYER_ATOL = 2e-5
+PACK_LAYER_RTOL = 1e-5
+PACK_LAYER_ITERS = 10
+# tools: create_binary_db on PNG fixtures of the RHD layout, the
+# run_baseline_parity drill (all 13 rows) over synthetic files at its eval
+# batch, bench_input, and release_check restricted to its preset step
+TOOLS_PNG_SAMPLES = 4
+TOOLS_RECORDS = 16  # RHD and STB records of the drill
+TOOLS_BATCH = 8
+TOOLS_BENCH_RECORDS = 256
+TOOLS_RELEASE_TIMEOUT_S = 600
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -482,6 +530,7 @@ out = est.predict(images)
 predict_s = time.perf_counter() - t0
 np.savez(sys.argv[3], **out)
 print(json.dumps({"load_s": load_s, "predict_s": predict_s,
+                  "meta": est.meta,
                   "launches": {"flood_fill": kernels.floodfill.launches,
                                "decode_upsampled": kernels.decode.launches},
                   "model_modules": sorted(
@@ -551,6 +600,12 @@ def phase_device():
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    # what an Orbax checkpoint reader could build on (zstd-compressed OCDBT
+    # nodes, zarr arrays) and what the tools read PNGs with
+    log("modules: " + json.dumps({
+        m: importlib.util.find_spec(m) is not None
+        for m in ("zstandard", "tensorstore", "zarr", "numcodecs", "PIL",
+                  "matplotlib", "scipy")}))
     return smi
 
 
@@ -1169,6 +1224,8 @@ def phase_export(dev, params_np):
     live = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
                              input_hw=(H, W), device=dev).predict(images)
     report = exported_answers(params_np, dev, images, live)
+    require(report["meta"]["phase_pack"] is False,
+            f"the f32 artifact's header: {report['meta']}")
     EXPORT_BYTES["f32"] = report["artifact_bytes"]
     log(json.dumps({"export": "torch.export", "batch": SERVE_BATCH,
                     "input_hw": [H, W], **report,
@@ -3635,9 +3692,10 @@ def parallel_fit(rank, world, tmp, dev):
     return {"first": first, "resumed": resumed}
 
 
-def parallel_sp(mesh, rank, dev):
+def parallel_sp(mesh, rank, dev, packed=False):
     """A grad step of HandSegNet with its rows split over "model" at
-    PARALLEL_SP_HW; on rank 0 held to one process's step."""
+    PARALLEL_SP_HW; on rank 0 held to one process's step. ``packed``: with
+    conv1_2 phase-packed (its one-row halo, its fused pool's row rule)."""
     hs, ws = PARALLEL_SP_HW[mesh_lib.model_size(mesh)]
     rng = np.random.default_rng(31)
     mask = rng.random((PARALLEL_SP_BATCH, hs, ws)) < 0.2
@@ -3645,9 +3703,12 @@ def parallel_sp(mesh, rank, dev):
         PARALLEL_SP_BATCH, hs, ws, 3)) * 0.1).astype(np.float32)).to(dev),
             "hand_mask": torch.from_numpy(np.stack([~mask, mask], -1)
                                           .astype(np.float32)).to(dev)}
-    params = trainer.init_state(
-        weights.params_from_jax(weights.random_params(0)[handsegnet.SCOPE],
-                                dev), trainer.make_optimizer([1.0], [])).params
+    tree = weights.params_from_jax(weights.random_params(0)[handsegnet.SCOPE],
+                                   dev)
+    if packed:
+        tree = phasepack.phase_pack_params(tree)
+    params = trainer.init_state(tree, trainer.make_optimizer([1.0],
+                                                             [])).params
     constrain = mesh_lib.spatial_constrainer(mesh)
 
     def sp_loss(p, batch, generator):
@@ -3875,6 +3936,8 @@ def parallel_child(rank, world, port, tmp, device, backend):
                 f"2x{rows // 2}x2") if world >= 4 else None),
             ("sp", lambda: parallel_sp(mesh_lib.make_mesh(1, world), rank,
                                        dev)),
+            ("sp_packed", lambda: parallel_sp(mesh_lib.make_mesh(1, world),
+                                              rank, dev, packed=True)),
             ("pp", lambda: parallel_pp(pipeline.make_pipeline_mesh(rows, 2),
                                        rank, dev)),
             ("ep", lambda: parallel_ep(expert.make_expert_mesh(rows, 2),
@@ -3955,17 +4018,18 @@ def phase_parallel(dev, params_np, smi, cards=1):
                 "plain_ms_per_step": runs[0]["plain_ms"],
                 "collectives_per_step": runs[0]["steps"][-1]["collectives"]}
 
-        sp = [r["sp"] for r in ranks]
-        require(len({(s["loss"], s["grads"]) for s in sp}) == 1,
-                "SP: the ranks differ")
-        e = sp[0]["grad_err_of_max"]
-        require(sp[0]["loss_rel_err"] <= MESH_LOSS_RTOL
-                and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
-                and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
-                and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
-                f"SP differs from one process: loss rel "
-                f"{sp[0]['loss_rel_err']}, gradients {e}")
-        line["sp"] = sp[0]
+        for key in ("sp", "sp_packed"):
+            sp = [r[key] for r in ranks]
+            require(len({(s["loss"], s["grads"]) for s in sp}) == 1,
+                    f"{key}: the ranks differ")
+            e = sp[0]["grad_err_of_max"]
+            require(sp[0]["loss_rel_err"] <= MESH_LOSS_RTOL
+                    and e["last_layers"] <= TRAIN_GRAD_RTOL_OF_MAX
+                    and e["worst"] <= TRAIN_FLIP_RTOL_OF_MAX
+                    and e["median"] <= TRAIN_FLIP_MEDIAN_RTOL_OF_MAX,
+                    f"{key} differs from one process: loss rel "
+                    f"{sp[0]['loss_rel_err']}, gradients {e}")
+            line[key] = sp[0]
 
         pp = [r["pp"] for r in ranks]
         require(len({p["loss"] for p in pp}) == 1, "PP: the ranks' losses "
@@ -4064,6 +4128,333 @@ def phase_parallel(dev, params_np, smi, cards=1):
     return launches
 
 
+def pack_layer_times(dev, plain, packed):
+    """HandSegNet's conv1_2 + leaky ReLU + 2x2 pool at each PACK_BATCHES
+    batch on its [B, 64, H, W] input: the fused packed layer held to the
+    plain one, and both timed by CUDA events (plain, packed, packed,
+    plain)."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    out = {}
+    for b in PACK_BATCHES:
+        x = torch.randn(b, 64, H, W, device=dev, generator=gen)
+
+        def run_plain():
+            return nn.max_pool_2x2(nn.leaky_relu(nn.conv2d(x, plain)))
+
+        def run_packed():
+            return phasepack.conv_relu_pool_packed(x, packed)
+
+        with torch.inference_mode():
+            want, got = run_plain(), run_packed()
+            err = (got - want).abs()
+            require(bool((err <= PACK_LAYER_ATOL
+                          + PACK_LAYER_RTOL * want.abs()).all()),
+                    f"the packed conv1_2 differs from the plain one at batch "
+                    f"{b}: {err.max().item()}")
+            ms = {"plain": [], "packed": []}
+            for name in ("plain", "packed", "packed", "plain"):
+                fn = run_plain if name == "plain" else run_packed
+                fn()
+                ms[name].append(cuda_ms(fn, PACK_LAYER_ITERS))
+        out[b] = {"max_abs_err": err.max().item(),
+                  "err_of_max": err.max().item() / want.abs().max().item(),
+                  "plain_ms": ms["plain"], "packed_ms": ms["packed"]}
+        del x, want, got, err
+    torch.cuda.empty_cache()
+    return out
+
+
+def pack_throughput(dev, params_np, rng, counts):
+    """frames/s at PACK_BATCHES of HandPoseEstimator f32 and int8_seg, each
+    plain and with phase_pack=True, timed in two rounds of alternating
+    order; the launches of the timed predicts go into ``counts``."""
+    modes = {"f32": {}, "f32_packed": {"phase_pack": True},
+             "int8_seg": {"quantize": "int8",
+                          "quantize_scope": {"handsegnet"}},
+             "int8_seg_pp": {"quantize": "int8",
+                             "quantize_scope": {"handsegnet"},
+                             "phase_pack": True}}
+    fps = {mode: {} for mode in modes}
+    for b in PACK_BATCHES:
+        images = rng.integers(0, 256, (b, H, W, 3), dtype=np.uint8)
+        ests = {mode: HandPoseEstimator(params_np, batch_size=b,
+                                        input_hw=(H, W), device=dev, **kw)
+                for mode, kw in modes.items()}
+        for est in ests.values():
+            est.predict(images)
+        per_batch = {mode: [] for mode in modes}
+        for order in (list(modes), list(modes)[::-1]):
+            for mode in order:
+                zero_counts()
+                per_batch[mode] += [cuda_ms(lambda: ests[mode].predict(images),
+                                            1) for _ in range(PACK_ITERS[b])]
+                add_counts(counts, kernel_counts())
+        for mode, ms in per_batch.items():
+            fps[mode][b] = b * 1000.0 / float(np.median(ms))
+        del ests
+        torch.cuda.empty_cache()
+    return fps
+
+
+def phase_pack(dev, params_np, smi, err):
+    """Phase-packed conv1_2 at 240x320: the packed tree made on the card
+    equal to the CPU's made from the TF-layout tree; the fused layer held to
+    the plain one and timed; the packed f32 and int8_seg_pp cascades held
+    flip-aware to the plain f32 and int8_seg ones on the card, both kernels
+    held to their twins on the packed cascades' inputs; frames/s of the
+    four estimators at PACK_BATCHES with the card's name and power limit;
+    an export with phase_pack=True loaded in a child process, its header
+    saying so, its answers equal to the live packed estimator's. Returns the
+    kernel launches."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(41)
+    plain = weights.params_from_jax(params_np, dev)
+    seg = quant.quantize_params_int8(plain, scopes={"handsegnet"})
+    trees = {"f32": (plain, phasepack.phase_pack_params(plain)),
+             "int8_seg": (seg, phasepack.phase_pack_params(seg))}
+    leaves = trees_equal(trees["f32"][1], weights.params_from_jax(
+        phasepack.phase_pack_params(params_np), CPU))
+    for tree in trees["f32"][1], trees["int8_seg"][1]:
+        require({p for p, layer in quant.layer_paths(tree).items()
+                 if "weights_p2" in layer} == {("HandSegNet", "conv1_2"),
+                                               ("PoseNet2D", "conv1_2")},
+                "phase_pack_params did not pack conv1_2 alone")
+    layer = pack_layer_times(dev, plain["HandSegNet"]["conv1_2"],
+                             trees["f32"][1]["HandSegNet"]["conv1_2"])
+
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    n = PACK_PARITY_IMAGES
+    frames = rng.integers(0, 256, (SERVE_BATCH, H, W, 3), np.uint8)
+    image = torch.from_numpy(normalize_images(frames)).to(dev)
+    side = torch.tensor([[1.0, 0.0]] * SERVE_BATCH, device=dev)
+    cascades = {}
+    for mode, (atol, c3d, flip) in (
+            ("f32", (SCOREMAP_ATOL, COORD3D_ATOL, FLIP_BOUND)),
+            ("int8_seg", (INT8_SCOREMAP_ATOL, INT8_COORD3D_ATOL,
+                          INT8_FLIP_BOUND))):
+        base, packed = trees[mode]
+        zero_counts()
+        got = parity.port_fields(packed, image[:n], side[:n])
+        add_counts(counts, kernel_counts())
+        cascades[mode] = parity.check_cascade(
+            parity.port_fields(base, image[:n], side[:n]), got,
+            parity.port_rerun(base, image[:n], side[:n]),
+            scoremap_atol=atol, coord3d_atol=c3d, flip_bound=flip)
+        det, seed, sm = slice_inputs(packed, image, side)
+        pairs = {
+            "flood_fill": (floodfill.flood_fill_cuda(det, seed, NUM_PASSES),
+                           segmentation.flood_fill_torch(det, seed,
+                                                         NUM_PASSES)),
+            "decode_upsampled": (decode.decode_upsampled_cuda(sm, FACTOR),
+                                 keypoints.decode_upsampled_torch(sm,
+                                                                  FACTOR))}
+        for name, (a, b) in pairs.items():
+            err[name] = max(err[name], (a - b).abs().max().item())
+            require(torch.equal(a, b), f"{name} differs from its twin on "
+                    f"the packed {mode} cascade's input")
+
+    # the user's path: the estimator packs, serves the packed cascade, and
+    # an export of it answers the same
+    est = HandPoseEstimator(params_np, batch_size=SERVE_BATCH,
+                            input_hw=(H, W), phase_pack=True, device=dev)
+    trees_equal(est.params, trees["f32"][1])
+    zero_counts()
+    live = est.predict(frames)
+    add_counts(counts, kernel_counts())
+    with torch.inference_mode():
+        want = select_serving_outputs(ColorHandPose3D().inference(
+            trees["f32"][1], image, side, keypoints_scoremap=False))
+    for k, v in want.items():
+        require(np.array_equal(live[k], v.cpu().numpy()),
+                f"the packed estimator's {k} differs from the cascade's")
+    del est
+    report = exported_answers(params_np, dev, frames, live, phase_pack=True)
+    require(report["meta"]["phase_pack"] is True,
+            f"the packed artifact's header: {report['meta']}")
+    add_counts(counts, report["launches"])
+
+    fps = pack_throughput(dev, params_np, rng, counts)
+    for name, k in counts.items():
+        require(k > 0, f"the packed cascades never launched {name}")
+    require_exact_f32()
+    log(json.dumps({
+        "phase_pack": {mode: {str(b): v for b, v in fps[mode].items()}
+                       for mode in fps},
+        "unit": "frames/s at 240x320", "card": smi,
+        "packed_vs_plain_f32": {str(b): fps["f32_packed"][b] / fps["f32"][b]
+                                for b in PACK_BATCHES},
+        "conv1_2_layer": {str(b): v for b, v in layer.items()},
+        "packed_vs_plain_cascade": cascades,
+        "leaves_card_equal_cpu": leaves,
+        "export": {"artifact_bytes": report["artifact_bytes"],
+                   "export_s": report["export_s"],
+                   "child_s": report["child_s"],
+                   "launches": report["launches"],
+                   "phase_pack": report["meta"]["phase_pack"],
+                   "outputs": "bit-equal to the live estimator"},
+        "launches": counts, "phase_s": time.perf_counter() - t_start}))
+    return counts
+
+
+def rhd_png_tree(root, rng, n):
+    """An RHD_published_v2-shaped evaluation set of ``n`` samples: RGB
+    color PNGs, grey part-mask PNGs and the annotation pickle (protocol 2,
+    as the published one); returns the arrays written."""
+    from PIL import Image
+
+    for sub in ("color", "mask"):
+        os.makedirs(os.path.join(root, "evaluation", sub))
+    anno, truth = {}, {}
+    for sid in range(n):
+        uv_vis = np.concatenate([rng.random((42, 2)) * 320,
+                                 rng.integers(0, 2, (42, 1))], 1)
+        anno[sid] = {"xyz": rng.standard_normal((42, 3)).astype(np.float32),
+                     "uv_vis": uv_vis.astype(np.float32),
+                     "K": (np.eye(3) * 283 + rng.random((3, 3))).astype(
+                         np.float32)}
+        truth[sid] = (rng.integers(0, 256, (*codec.RHD_IMAGE_SIZE, 3),
+                                   np.uint8),
+                      rng.integers(0, 34, codec.RHD_IMAGE_SIZE, np.uint8))
+        for sub, arr in zip(("color", "mask"), truth[sid]):
+            Image.fromarray(arr).save(os.path.join(
+                root, "evaluation", sub, "%.5d.png" % sid))
+    with open(os.path.join(root, "evaluation", "anno_evaluation.pickle"),
+              "wb") as f:
+        pickle.dump(anno, f, protocol=2)
+    return anno, truth
+
+
+def baseline_drill_inputs(tmp, params_np):
+    """data/, weights/ and retrained/ for all 13 rows of
+    run_baseline_parity: synthetic RHD and STB files, the reference's
+    pickles of seeded trees, and the port's snap_pose / snap_seg
+    snapshots."""
+    data, wdir, retrained = (os.path.join(tmp, d) for d in
+                             ("data", "weights", "retrained"))
+    for d in (data, wdir):
+        os.makedirs(d)
+    rng = np.random.default_rng(47)
+    write_rhd_file(os.path.join(data, "rhd_evaluation.bin"), TOOLS_RECORDS,
+                   rng)
+    write_stb_file(os.path.join(data, "stb_evaluation.bin"), TOOLS_RECORDS,
+                   rng)
+    trees = {"handsegnet-rhd.pickle": ("HandSegNet",),
+             "posenet-rhd-stb.pickle": ("PoseNet2D",),
+             "posenet3d-rhd-stb.pickle": ("PoseNet2D", "PosePrior",
+                                          "ViewpointNet")}
+    for name, scopes in trees.items():
+        flat = weights.tree_to_flat({sc: params_np[sc] for sc in scopes})
+        with open(os.path.join(wdir, name), "wb") as f:
+            pickle.dump({k + ":0": v for k, v in flat.items()}, f,
+                        protocol=2)
+    for i, v in enumerate(run_baseline_parity.VARIANT_BY_ROW.values()):
+        flat = weights.tree_to_flat(weights.random_lifting_params(v, i + 1))
+        with open(os.path.join(wdir, f"lifting-{v}.pickle"), "wb") as f:
+            pickle.dump(flat, f, protocol=2)
+    for snap, scope in (("snap_pose", "PoseNet2D"), ("snap_seg",
+                                                     "HandSegNet")):
+        checkpoints.save_snapshot(
+            os.path.join(retrained, snap), trainer.init_state(
+                weights.params_from_jax({scope: params_np[scope]}, CPU),
+                trainer.make_optimizer([1e-4], [])), step=1)
+    return data, wdir, retrained
+
+
+def phase_tools(dev, params_np, smi):
+    """The dataset and host tools on the card's machine: create_binary_db
+    on PNG fixtures (PIL there, no matplotlib), read back by the port's RHD
+    reader; run_baseline_parity's drill, all 13 rows judged on synthetic
+    files through the four harnesses on the card; bench_input's records/s
+    beside the resident PoseNet step; release_check with its preset step
+    alone, on an overfit dir of a seeded lifting snapshot. Returns the
+    kernel launches of the drill."""
+    t_start = time.perf_counter()
+    line = {"phase": "tools", "card": smi}
+    counts = {"flood_fill": 0, "decode_upsampled": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "RHD_published_v2")
+        anno, truth = rhd_png_tree(root, np.random.default_rng(45),
+                                   TOOLS_PNG_SAMPLES)
+        out = os.path.join(tmp, "rhd_png.bin")
+        t0 = time.perf_counter()
+        create_binary_db.main(["--rhd-path", root, "--out", out])
+        line["create_binary_db_s"] = time.perf_counter() - t0
+        raw = RHDDataset("evaluation", path=out).raw_batch(
+            np.arange(TOOLS_PNG_SAMPLES))
+        for sid, (image, mask) in truth.items():
+            a = anno[sid]
+            require(np.array_equal(raw["image"][sid], image)
+                    and np.array_equal(raw["hand_parts"][sid], mask)
+                    and np.array_equal(raw["kp_xyz"][sid], a["xyz"])
+                    and np.array_equal(raw["kp_uv"][sid], a["uv_vis"][:, :2])
+                    and np.array_equal(raw["cam_mat"][sid], a["K"])
+                    and np.array_equal(raw["kp_vis"][sid],
+                                       a["uv_vis"][:, 2] == 1),
+                    f"create_binary_db: record {sid} differs from its PNGs "
+                    "and annotation")
+
+        data, wdir, retrained = baseline_drill_inputs(tmp, params_np)
+        zero_counts()
+        t0 = time.perf_counter()
+        results = run_baseline_parity.run_rows(
+            data, wdir, retrained_dir=retrained, batch_size=TOOLS_BATCH,
+            progress=False, device=dev)
+        line["baseline_drill_s"] = time.perf_counter() - t0
+        add_counts(counts, kernel_counts())
+        require(sorted(results) == list(range(1, 14)), f"rows {results}")
+        for row, r in results.items():
+            require(not r["skipped"] and set(r["measured"]) == set(
+                run_baseline_parity.ROWS[row]["expect"]) and all(
+                    np.isfinite(v) for v in r["measured"].values()),
+                    f"baseline row {row}: {r}")
+        line["baseline_rows"] = {row: {"seconds": r["seconds"],
+                                       "measured": r["measured"]}
+                                 for row, r in results.items()}
+        for name, k in counts.items():
+            require(k > 0, f"the baseline drill never launched {name}")
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_input.main(["--records", str(TOOLS_BENCH_RECORDS),
+                              "--batch", str(TRAIN_BATCH)])
+        bench = json.loads(buf.getvalue().splitlines()[-1])
+        require("native_error" not in bench and bench["native_rec_s"] > 0
+                and bench["memmap_rec_s"] > 0, f"bench_input: {bench}")
+        line["bench_input"] = bench
+
+        overfit = os.path.join(tmp, "overfit")
+        checkpoints.save_snapshot(
+            os.path.join(overfit, "snap_lifting"), trainer.init_state(
+                weights.params_from_jax(weights.random_lifting_params(
+                    "proposed", 3), CPU), trainer.make_optimizer([1e-4], [])),
+            step=1)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hand3d_tpu_torch.tools.release_check",
+             "--round", "0", "--steps", "preset", "--overfit-dir", overfit,
+             "--out-dir", tmp],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=TOOLS_RELEASE_TIMEOUT_S)
+        sys.stderr.write(proc.stderr[-2000:])
+        with open(os.path.join(tmp, "RESULTS_torch_r00.json")) as f:
+            record = json.load(f)
+        step = record["steps"]["preset"]
+        require(proc.returncode == 0 and step["ok"]
+                and record["card"] == smi and record["partial"]
+                and step["summary"]["gate"] == "preset_accuracy"
+                and all(record["steps"][k].get("skipped") for k in
+                        ("chip_smoke", "overfit", "generalization")),
+                f"release_check exited {proc.returncode}: {record}")
+        line["release_check"] = {
+            "s": time.perf_counter() - t0, "card": record["card"],
+            "preset_s": step["seconds"],
+            "presets": sorted(step["summary"]["presets"])}
+    line["launches"] = counts
+    line["s"] = time.perf_counter() - t_start
+    log(json.dumps(line))
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4092,7 +4483,9 @@ def main():
             ("weights", lambda: phase_weights(dev, params_np)),
             ("quant", lambda: phase_quant(dev, params_np, f32_fps, err)),
             ("mesh", lambda: phase_mesh(dev, params_np, smi)),
-            ("parallel", lambda: phase_parallel(dev, params_np, smi))):
+            ("parallel", lambda: phase_parallel(dev, params_np, smi)),
+            ("phase_pack", lambda: phase_pack(dev, params_np, smi, err)),
+            ("tools", lambda: phase_tools(dev, params_np, smi))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0

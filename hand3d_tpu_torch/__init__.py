@@ -18,7 +18,8 @@ Package layout:
   precision.py exact f32 on the card (TF32 off), called by every entry point
   weights.py   npz reader, TF-layout -> torch conversion, seeded random init
   ops/         nn, image, segmentation, keypoints, numerics, rotations,
-               canonical, kinematics
+               canonical, kinematics, quant (int8), phasepack (conv1_2
+               phase-packed)
   ops/kernels  nvcc build + ctypes bindings of the CUDA kernels
   models/      HandSegNet, PoseNet, PosePrior/ViewpointNet and the five
                lifting variants, the cascade (seg_scale, soft-argmax,
@@ -31,6 +32,9 @@ Package layout:
                profiling
   cli/         eval2d_gt_cropped, eval2d, eval3d, eval_full, the four
                train_* trainers, serve (HTTP), export_model, demo
+  tools/       the training gates, preset_accuracy, the dataset writers
+               (create_binary_db, create_stb_db), run_baseline_parity,
+               inspect_db, average_params, bench_input, release_check
   batching.py  the predict() contract: normalize, chunk and pad
   serving.py   HandPoseEstimator (f32 / bf16), SnapEstimator,
                AutoBucketEstimator, DynamicBatcher

@@ -263,28 +263,33 @@ def add_quantize_arg(p):
                         "(ops.quant): measures the quantized EPE beside the "
                         "f32 numbers.")
     p.add_argument("--phase-pack", action="store_true",
-                   help="TPU lane packing of conv1_2: out of scope for the "
-                        "port, raises.")
+                   help="Run conv1_2 of HandSegNet and PoseNet phase-packed: "
+                        "its even and odd output columns as one stride-(1, 2) "
+                        "conv of twice the channels, fused with the 2x2 pool "
+                        "after it (ops.phasepack; 4/3 of the layer's "
+                        "multiply-adds, equal to the plain layer to float "
+                        "reassociation). Applied after --quantize.")
 
 
 def maybe_quantize(params, args):
-    """--quantize int8: the TF-layout tree ``params`` on the CLI's device,
+    """The inference param transforms of --quantize int8 and --phase-pack:
+    with --quantize, the TF-layout tree ``params`` on the CLI's device,
     quantized there (``ops.quant.quantize_params_int8``), as a torch tree
-    the eval harnesses take as it is; without it, ``params`` unchanged.
-    --phase-pack raises (out of scope)."""
-    if getattr(args, "phase_pack", False):
-        raise NotImplementedError(
-            "--phase-pack is out of scope for the port: it packs conv1_2's "
-            "output phases into the TPU's 128 lanes (ROADMAP.md, out of "
-            "scope this round)")
-    if getattr(args, "quantize", None) != "int8":
-        return params
-    from hand3d_tpu_torch import precision
-    from hand3d_tpu_torch.ops.quant import quantize_params_int8
-    from hand3d_tpu_torch.weights import params_from_jax
+    the eval harnesses take as it is; then --phase-pack packs conv1_2
+    (``ops.phasepack.phase_pack_params``, either tree). Without either,
+    ``params`` unchanged."""
+    if getattr(args, "quantize", None) == "int8":
+        from hand3d_tpu_torch import precision
+        from hand3d_tpu_torch.ops.quant import quantize_params_int8
+        from hand3d_tpu_torch.weights import params_from_jax
 
-    return quantize_params_int8(params_from_jax(
-        params, precision.exact_f32(args.device)))
+        params = quantize_params_int8(params_from_jax(
+            params, precision.exact_f32(args.device)))
+    if getattr(args, "phase_pack", False):
+        from hand3d_tpu_torch.ops.phasepack import phase_pack_params
+
+        params = phase_pack_params(params)
+    return params
 
 
 def reject_unported(args):

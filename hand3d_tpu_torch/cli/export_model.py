@@ -30,7 +30,8 @@ def main(argv=None):
                    help="bake in the int8 weights and scales (ops.quant, "
                         "dynamic activation scales)")
     p.add_argument("--phase-pack", action="store_true",
-                   help="out of scope for the port, raises")
+                   help="bake in conv1_2 phase-packed and fused with its pool "
+                        "(ops.phasepack; the header records it)")
     p.add_argument("--device", default="cuda",
                    help="device the program runs on (default cuda: the CUDA "
                         "kernels; cpu: their plain twins)")
@@ -54,7 +55,7 @@ def main(argv=None):
     )
     print(f"wrote {args.out}: {len(blob)} bytes, "
           f"batch={args.batch_size}, input={h}x{w}, device={args.device}, "
-          f"quantize={args.quantize}")
+          f"quantize={args.quantize}, phase_pack={args.phase_pack}")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ JAX package's container around the program:
     u32 little-endian  JSON header length
     JSON header        {"version", "format": "torch.export", "batch_size",
                         "input_hw", "left_hand", "seg_scale", "quantize",
-                        "compute_dtype", "device", "torch"}
+                        "phase_pack", "compute_dtype", "device", "torch"}
     payload            torch.export.save bytes of the ExportedProgram
 
 Both hand-written kernels are in the program as the registered ops
@@ -17,7 +17,9 @@ Both hand-written kernels are in the program as the registered ops
 (``ops/kernels``). With ``quantize="int8"`` the int8 weights and their
 scales are baked in, and each int8 conv is the registered op
 ``torch.ops.hand3d.int8_conv`` (``ops/quant``), which allows TF32 for its
-own call only, as the live estimator does. The program maps f32[B, H, W, 3] to the dict of
+own call only, as the live estimator does. With ``phase_pack=True`` the
+phase-packed conv1_2 layers and their fused pools are traced in. The
+program maps f32[B, H, W, 3] to the dict of
 ``serving.HandPoseEstimator.predict``; shapes are static, one artifact per
 (batch, height, width) bucket.
 
@@ -67,7 +69,9 @@ def export_estimator(params, path=None, *, batch_size=16, input_hw=(240, 320),
     ``device``: where the program runs ("cuda": the CUDA kernels; "cpu":
     their twins); the artifact is loaded there. ``quantize``: None or
     "int8" (dynamic activation scales, ``serving.prepare_params``), the
-    int8 tree made on ``device``. ``phase_pack`` is out of scope and raises.
+    int8 tree made on ``device``. ``phase_pack``: conv1_2 phase-packed
+    after any quantization (``serving.prepare_params``); the input width
+    must be even.
 
     Returns the artifact bytes; also writes them to ``path`` if given.
     """
@@ -95,6 +99,7 @@ def export_estimator(params, path=None, *, batch_size=16, input_hw=(240, 320),
         "left_hand": bool(left_hand),
         "seg_scale": float(seg_scale),
         "quantize": quantize,
+        "phase_pack": bool(phase_pack),
         "compute_dtype": "bfloat16" if compute_dtype_of(compute_dtype)
         else None,
         "device": str(device),

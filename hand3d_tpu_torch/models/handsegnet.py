@@ -7,7 +7,7 @@ conv6_1(512) -> conv6_2(2), bilinearly upsampled to the input resolution
 (ColorHandPose3DNetwork.inference_detection, :131-168).
 """
 
-from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.ops import nn, phasepack
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.parallel import spatial
 
@@ -45,18 +45,29 @@ def apply(params, image, compute_dtype=None, constrain=None):
     ``compute_dtype``: the convs' (``ops.nn.conv2d``). ``constrain``: the
     spatial-partitioning hook (``parallel.spatial_constrainer``), applied
     after each conv block as in the JAX package; the scoremap is whole
-    again before the upsampling."""
+    again before the upsampling. A phase-packed layer with a ReLU that feeds
+    a pool runs fused with it (``ops.phasepack.maybe_fused_conv_pool``)."""
     _, h, w, _ = image.shape
     x = image.permute(0, 3, 1, 2).contiguous()
     with spatial.region(constrain):
-        for layer in LAYERS:
+        i = 0
+        while i < len(LAYERS):
+            layer = LAYERS[i]
+            i += 1
             if layer == "pool":
                 x = nn.max_pool_2x2(x)
                 continue
             name, _, _, relu = layer
-            x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
-            if relu:
-                x = nn.leaky_relu(x)
+            next_is_pool = i < len(LAYERS) and LAYERS[i] == "pool"
+            fused = phasepack.maybe_fused_conv_pool(
+                x, params[name], relu and next_is_pool, compute_dtype)
+            if fused is not None:
+                x = fused
+                i += 1  # the pool ran fused
+            else:
+                x = nn.conv2d(x, params[name], compute_dtype=compute_dtype)
+                if relu:
+                    x = nn.leaky_relu(x)
             if constrain is not None:
                 x = constrain(x)
         x = spatial.whole(x)

@@ -9,7 +9,7 @@ then two units of concat(scoremap, encoding) -> 5 x 7x7 conv(128) ->
 
 import torch
 
-from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.ops import nn, phasepack
 from hand3d_tpu_torch.parallel import spatial
 
 SCOPE = "PoseNet2D"
@@ -66,15 +66,27 @@ def apply_trunk(params, image_crop, compute_dtype=None, constrain=None):
     ``constrain``: the spatial-partitioning hook
     (``parallel.spatial_constrainer``), applied after each encoder conv as
     in the JAX package; the encoding leaves the constrained region whole.
+    A phase-packed layer that feeds a pool runs fused with it
+    (``ops.phasepack.maybe_fused_conv_pool``).
     """
     x = image_crop.permute(0, 3, 1, 2).contiguous()
     with spatial.region(constrain):
-        for layer in ENCODER:
+        i = 0
+        while i < len(ENCODER):
+            layer = ENCODER[i]
+            i += 1
             if layer == "pool":
                 x = nn.max_pool_2x2(x)
                 continue
-            x = nn.conv2d_relu(x, params[layer[0]],
-                               compute_dtype=compute_dtype)
+            p = params[layer[0]]
+            next_is_pool = i < len(ENCODER) and ENCODER[i] == "pool"
+            fused = phasepack.maybe_fused_conv_pool(x, p, next_is_pool,
+                                                    compute_dtype)
+            if fused is not None:
+                x = fused
+                i += 1  # the pool ran fused
+            else:
+                x = nn.conv2d_relu(x, p, compute_dtype=compute_dtype)
             if constrain is not None:
                 x = constrain(x)
         encoding = spatial.whole(x)

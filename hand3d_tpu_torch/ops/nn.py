@@ -18,7 +18,8 @@ A layer dict in the int8 layout ({"weights_q", ...},
 ``ops.quant.quantize_params_int8``) takes the int8 path and ignores
 ``compute_dtype``; one in the QAT layout ({"weights_fq", ...},
 ``ops.quant.qat_view``) fake-quantizes its weights and input, then runs the
-float path.
+float path. One in the phase-packed layout ({"weights_p2", "biases"},
+``ops.phasepack.phase_pack_params``) runs the packed stride-(1, 2) conv.
 
 A layer dict sharded over a mesh's "model" axis (it carries a
 ``parallel.mesh.ModelShard`` under ``SHARD_KEY``; ``parallel.shard_params``)
@@ -52,8 +53,8 @@ def leaky_relu(x):
 
 
 def _kernel_key(params):
-    return next(k for k in ("weights", "weights_q", "weights_fq")
-                if k in params)
+    return next(k for k in ("weights", "weights_q", "weights_fq",
+                            "weights_p2") if k in params)
 
 
 def _sharded(op, x, params, *args):
@@ -116,8 +117,8 @@ def conv2d(x, params, stride=1, compute_dtype=None):
 
     ``compute_dtype=torch.bfloat16``: x and the weights rounded to bf16, the
     conv in f32 with TF32 allowed for this call on the card (exact for such
-    operands, ``precision.tf32_convs``). int8 and QAT layer dicts: see the
-    module docstring.
+    operands, ``precision.tf32_convs``). int8, QAT and phase-packed layer
+    dicts: see the module docstring; a packed layer is stride 1 only.
     """
     if SHARD_KEY in params:
         return _sharded(conv2d, x, params, stride, compute_dtype)
@@ -131,6 +132,13 @@ def conv2d(x, params, stride=1, compute_dtype=None):
         from hand3d_tpu_torch.ops import quant
 
         return quant.conv2d_int8(x, params, stride)
+    if "weights_p2" in params:
+        from hand3d_tpu_torch.ops import phasepack
+
+        if stride != 1:
+            raise ValueError(f"a phase-packed layer runs at stride 1, not "
+                             f"{stride}")
+        return phasepack.conv2d_phase_packed(x, params, compute_dtype)
     if "weights_fq" in params:
         from hand3d_tpu_torch.ops import quant
 

@@ -112,11 +112,12 @@ def _is_layer(p):
 
 def layer_paths(params, prefix=()):
     """{path tuple: layer dict} of every layer dict of the tree (float,
-    int8 or QAT layout)."""
+    int8, QAT or phase-packed layout; the quantizers pass a packed layer
+    by)."""
     if not isinstance(params, dict):
         return {}
     if "biases" in params and any(k in params for k in (
-            "weights", "weights_q", "weights_fq")):
+            "weights", "weights_q", "weights_fq", "weights_p2")):
         return {prefix: params}
     out = {}
     for k, v in params.items():

@@ -52,32 +52,33 @@ def prepare_params(params, quantize=None, phase_pack=False,
     scales, calibrated by ``calibrate_fn(params, batch)`` running the float
     model over ``calibration_batches``). ``quantize_scope``: stage names
     (case-insensitive, e.g. {"handsegnet"}) that alone are quantized.
-    ``phase_pack`` is out of scope for the port and raises.
+    ``phase_pack``: conv1_2 of HandSegNet and PoseNet in the phase-packed
+    layout (``ops.phasepack.phase_pack_params``), after any quantization.
     """
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize must be one of {QUANTIZE_MODES}, got "
                          f"{quantize!r}")
-    if phase_pack:
-        raise NotImplementedError(
-            "phase_pack is out of scope for the port: it packs conv1_2's "
-            "output phases into the TPU's 128 lanes (ROADMAP.md, out of "
-            "scope this round)")
-    if quantize is None:
-        if quantize_scope:
-            raise ValueError("quantize_scope requires quantize='int8'")
-        return params
-    from hand3d_tpu_torch.ops.quant import (calibrate_act_scales,
-                                            quantize_params_int8)
+    if quantize is None and quantize_scope:
+        raise ValueError("quantize_scope requires quantize='int8'")
+    if quantize is not None:
+        from hand3d_tpu_torch.ops.quant import (calibrate_act_scales,
+                                                quantize_params_int8)
 
-    act = None
-    if quantize == "int8_static":
-        if calibration_batches is None or calibrate_fn is None:
-            raise ValueError("quantize='int8_static' needs "
-                             "calibration_batches and calibrate_fn")
-        act = calibrate_act_scales(calibrate_fn, params, calibration_batches)
-    return quantize_params_int8(
-        params, scopes=set(quantize_scope) if quantize_scope else None,
-        act_scales=act)
+        act = None
+        if quantize == "int8_static":
+            if calibration_batches is None or calibrate_fn is None:
+                raise ValueError("quantize='int8_static' needs "
+                                 "calibration_batches and calibrate_fn")
+            act = calibrate_act_scales(calibrate_fn, params,
+                                       calibration_batches)
+        params = quantize_params_int8(
+            params, scopes=set(quantize_scope) if quantize_scope else None,
+            act_scales=act)
+    if phase_pack:
+        from hand3d_tpu_torch.ops.phasepack import phase_pack_params
+
+        params = phase_pack_params(params)
+    return params
 
 
 class DeviceParams(dict):
@@ -167,7 +168,9 @@ class HandPoseEstimator:
         the outputs are all-gathered, so every rank returns the whole
         answer. The params take the mesh's tensor-parallel layout after any
         ``quantize``. batch_size must divide over the mesh's batch shards.
-      phase_pack: the JAX package's TPU lane packing; out of scope, raises.
+      phase_pack: conv1_2 phase-packed (``prepare_params``), fused with its
+        pool; equal to the plain cascade to float reassociation. The input
+        width must be even.
 
     On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
     the cascade's parity contract is f32. The bf16 mode allows TF32 for its
@@ -307,13 +310,14 @@ class AutoBucketEstimator:
 
     All other constructor kwargs pass through to HandPoseEstimator (``mesh``
     among them: every bucket then spreads its batches over the ranks); the
-    int8 options (``quantize``, ``quantize_scope``, ``calibration_images``)
-    are applied here, once, to the params the buckets share.
+    param transforms (``quantize``, ``quantize_scope``,
+    ``calibration_images``, ``phase_pack``) are applied here, once, to the
+    params the buckets share.
     """
 
     def __init__(self, params, batch_size=16, snap_hws=None, max_buckets=8,
                  *, device, quantize=None, quantize_scope=None,
-                 calibration_images=None, **kwargs):
+                 calibration_images=None, phase_pack=False, **kwargs):
         mesh = kwargs.get("mesh")
         if mesh is not None:
             device = mesh_lib.rank_device(device)
@@ -321,7 +325,7 @@ class AutoBucketEstimator:
         self.params = quantized_device_params(
             params, self.device, quantize, quantize_scope,
             calibration_images, kwargs.get("left_hand", True),
-            kwargs.get("seg_scale", 1.0), kwargs.get("phase_pack", False))
+            kwargs.get("seg_scale", 1.0), phase_pack)
         if mesh is not None:  # sharded once, for every bucket
             self.params = DeviceParams(
                 mesh_lib.shard_params(mesh, self.params), self.device,

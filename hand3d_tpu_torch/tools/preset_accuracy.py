@@ -13,10 +13,10 @@ f32 ones:
 
 Rows: ``seg_scale=0.5``, ``bf16``, ``int8`` (dynamic activation scales),
 ``int8_static`` (static scales calibrated on the first half of the
-batches), ``int8_seg`` (HandSegNet alone) and ``int8_seg_refiners``
-(HandSegNet and PoseNet's refinement units conv6 / conv7). The JAX tool's
-``int8_seg_pp`` and ``phase_pack`` rows are left out: phase packing is out
-of scope for the port.
+batches), ``int8_seg`` (HandSegNet alone), ``int8_seg_refiners``
+(HandSegNet and PoseNet's refinement units conv6 / conv7), ``int8_seg_pp``
+(``int8_seg`` with conv1_2 phase-packed) and ``phase_pack`` (the f32 tree
+with conv1_2 phase-packed, ``ops.phasepack``).
 
 Weights: the snapshots that ``overfit_check --keep DIR`` leaves
 (``--overfit-dir DIR``; nets that localize the synthetic hands), or
@@ -39,11 +39,6 @@ import tempfile
 
 import numpy as np
 import torch
-
-LEFT_OUT = {"int8_seg_pp": "phase_pack is out of scope for the port "
-                           "(ROADMAP.md)",
-            "phase_pack": "phase_pack is out of scope for the port "
-                          "(ROADMAP.md)"}
 
 
 def load_overfit_params(overfit_dir):
@@ -142,6 +137,7 @@ def presets(params, batches, hand_side):
     """{name: (cascade, torch param tree)} of every row; ``params`` is the
     f32 tree on the device, the int8 trees are made from it there."""
     from hand3d_tpu_torch.models.cascade import ColorHandPose3D
+    from hand3d_tpu_torch.ops.phasepack import phase_pack_params
     from hand3d_tpu_torch.ops.quant import (calibrate_act_scales,
                                             quantize_params_int8)
 
@@ -160,6 +156,8 @@ def presets(params, batches, hand_side):
         "int8_seg": (net, seg),
         "int8_seg_refiners": (net, quantize_params_int8(
             seg, scopes={"posenet2d"}, include_substrings={"conv6", "conv7"})),
+        "int8_seg_pp": (net, phase_pack_params(seg)),
+        "phase_pack": (net, phase_pack_params(params)),
     }
 
 
@@ -186,8 +184,6 @@ def markdown(summary):
             f"| {u['mean']:.2f} / {u['p95']:.2f} / {u['max']:.2f} "
             f"| {d['mean']:.4f} / {d['p95']:.4f} "
             f"| {sm['p50']:.4f} / {sm['p95']:.4f} |")
-    for name, why in summary["left_out"].items():
-        lines.append(f"| {name} | left out: {why} | | | | |")
     return "\n".join(lines + [""])
 
 
@@ -230,15 +226,13 @@ def main(argv=None):
         print(f"running {name} ...", file=sys.stderr)
         results[name] = deltas(base, run_cascade(net, tree, batches,
                                                  hand_side))
-    for name, why in LEFT_OUT.items():
-        print(f"{name}: left out, {why}")
     summary = {"gate": "preset_accuracy",
                "weights": args.label or ("overfit" if args.overfit_dir
                                          else "random_init"),
                "images": len(batches) * args.batch,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu"),
-               "presets": results, "left_out": LEFT_OUT}
+               "presets": results}
     if args.write_doc:
         with open(args.write_doc, "a") as f:
             f.write(markdown(summary))

@@ -30,23 +30,24 @@ def save_npz(path, tree):
     np.savez(path, **tree_to_flat(tree))
 
 
-# float32 leaves of the float, int8 and QAT layer layouts; "weights_q" keeps
-# its int8 dtype. Kernels of 4 dims go HWIO <-> OIHW.
+# float32 leaves of the float, int8, QAT and phase-packed layer layouts;
+# "weights_q" keeps its int8 dtype. Kernels of 4 dims go HWIO <-> OIHW.
 _FLOAT_KEYS = ("weights", "biases", "weights_fq", "weight_scale", "act_scale",
-               "act_scale_fq")
+               "act_scale_fq", "weights_p2")
 _KEYS = _FLOAT_KEYS + ("weights_q",)
 
 
 def params_from_jax(tree, device):
     """TF-layout numpy tree -> torch tree on ``device``.
 
-    Conv kernels ("weights", "weights_fq", "weights_q") go HWIO -> OIHW,
+    Conv kernels ("weights", "weights_fq", "weights_q", the phase-packed
+    "weights_p2" [3, 4, in, 2 out] -> [2 out, in, 3, 4]) go HWIO -> OIHW,
     and the stage-stacked kernels of ``parallel.pipeline`` ([S, kh, kw, in,
     out]) go so stage by stage; dense kernels stay [in, out], the stacked
     experts of ``parallel.expert`` ([E, in, out]) too. "weights_q" stays
-    int8, every other leaf (biases, scales) is float32: the int8 and QAT
-    layouts of ``hand3d_tpu.ops.quant`` carry across. Other layer dicts
-    (phase-packed) are out of scope and raise.
+    int8, every other leaf (biases, scales) is float32: the int8, QAT and
+    phase-packed layouts of the JAX package carry across. Another leaf name
+    raises.
     """
     out = {}
     for key, value in tree.items():
@@ -55,7 +56,8 @@ def params_from_jax(tree, device):
             continue
         if key not in _KEYS:
             raise ValueError(f"unsupported parameter {key!r}: the port "
-                             "carries the float, int8 and QAT layouts only")
+                             "carries the float, int8, QAT and phase-packed "
+                             "layouts")
         arr = np.asarray(value, np.int8 if key == "weights_q"
                          else np.float32)
         if arr.ndim >= 4:  # [..., kh, kw, in, out] -> [..., out, in, kh, kw]

@@ -119,8 +119,10 @@ def test_rejects_a_bad_magic_and_a_jax_artifact(artifact):
 
 
 def test_unported_export_options_raise(params):
-    with pytest.raises(NotImplementedError, match="out of scope"):
-        export.export_estimator(params, phase_pack=True, device="cpu")
+    # phase packing exports (tests/test_torch_phasepack.py), at even widths
+    with pytest.raises(ValueError, match="even input width"):
+        export.export_estimator(params, batch_size=1, input_hw=(32, 33),
+                                phase_pack=True, device="cpu")
     # calibration needs images, which the exporter does not take (as JAX's)
     with pytest.raises(ValueError, match="None or 'int8'"):
         export.export_estimator(params, quantize="int8_static", device="cpu")
@@ -173,9 +175,15 @@ def test_export_cli(params, npz, tmp_path, capsys):
                                      left_hand=False, device="cpu")
     images = frames(1, *HW, seed=3)
     assert_equal_outputs(est.predict(images), live.predict(images))
-    with pytest.raises(NotImplementedError, match="out of scope"):
-        export_model.main(["--weights", str(npz), "--out", str(out),
-                           "--device", "cpu", "--phase-pack"])
+    export_model.main(["--weights", str(npz), "--out", str(out),
+                       "--batch-size", "1", "--input-hw", "48x64",
+                       "--device", "cpu", "--phase-pack"])
+    assert "phase_pack=True" in capsys.readouterr().out
+    est = export.ExportedEstimator.load(str(out))
+    assert est.meta["phase_pack"] is True and est.meta["quantize"] is None
+    live = serving.HandPoseEstimator(params, batch_size=1, input_hw=HW,
+                                     phase_pack=True, device="cpu")
+    assert_equal_outputs(est.predict(images), live.predict(images))
     export_model.main(["--weights", str(npz), "--out", str(out),
                        "--batch-size", "1", "--input-hw", "48x64",
                        "--device", "cpu", "--quantize", "int8"])

@@ -78,7 +78,7 @@ def test_overfit_keep_then_qat_warm_start_then_preset_accuracy(tmp_path):
     """overfit_check --keep DIR leaves its records and final snapshots;
     --qat --warm-from DIR fine-tunes from them under the fake-quant view
     (the drop bar becomes the 0.9 backstop); preset_accuracy --overfit-dir
-    DIR reads them and reports every row, the phase-packed ones left out."""
+    DIR reads them and reports every row, the phase-packed ones too."""
     keep = str(tmp_path / "of")
     proc, s = run_tool("overfit_check", "--steps", "2", "--only", "lifting",
                        "--records", "8", "--keep", keep)
@@ -105,15 +105,14 @@ def test_overfit_keep_then_qat_warm_start_then_preset_accuracy(tmp_path):
         "'ViewpointNet']" in proc.stderr
     assert list(s["presets"]) == ["seg_scale=0.5", "bf16", "int8",
                                   "int8_static", "int8_seg",
-                                  "int8_seg_refiners"]
-    assert set(s["left_out"]) == {"int8_seg_pp", "phase_pack"}
-    assert "int8_seg_pp: left out" in proc.stdout
+                                  "int8_seg_refiners", "int8_seg_pp",
+                                  "phase_pack"]
     for row in s["presets"].values():
         assert all(np.isfinite(v) for m in row.values() for v in m.values())
     # the int8 rows are quantized: they move PoseNet's scoremap
     assert s["presets"]["int8"]["scoremap_rel_l2"]["max"] > 0
     table = doc.read_text()
-    assert "| int8_static |" in table and "| int8_seg_pp | left out" in table
+    assert "| int8_static |" in table and "| int8_seg_pp |" in table
 
 
 @pytest.mark.parametrize("name, kw", [

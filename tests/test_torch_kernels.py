@@ -122,7 +122,8 @@ def test_no_port_module_imports_what_the_card_lacks():
 def test_weight_readers_and_gates_run_without_jax(tmp_path):
     """With jax, flax, msgpack, ml_dtypes and the JAX package blocked: a
     reference pickle, a TF checkpoint with a bf16 tensor and a msgpack
-    snapshot load, and the gates' tools and writers import."""
+    snapshot load, the gates' and the dataset and host tools and the
+    writers import, and a phase-packed tree is made."""
     code = (
         "import pickle, sys, numpy as np\n"
         f"for m in {FORBIDDEN!r}:\n"
@@ -131,8 +132,11 @@ def test_weight_readers_and_gates_run_without_jax(tmp_path):
         "from hand3d_tpu_torch.parallel import mesh\n"
         "from hand3d_tpu_torch.utils import debug, profiling\n"
         "from hand3d_tpu_torch.data import synthetic\n"
-        "from hand3d_tpu_torch.tools import (generalization_check,\n"
-        "                                    overfit_check)\n"
+        "from hand3d_tpu_torch.tools import (\n"
+        "    average_params, bench_input, create_binary_db, create_stb_db,\n"
+        "    generalization_check, inspect_db, overfit_check,\n"
+        "    preset_accuracy, release_check, run_baseline_parity)\n"
+        "from hand3d_tpu_torch.ops import phasepack\n"
         "from hand3d_tpu_torch.weights import flax_msgpack, tf_ckpt\n"
         f"d = {str(tmp_path)!r}\n"
         "w = np.arange(6, dtype=np.float32).reshape(2, 3)\n"
@@ -156,6 +160,10 @@ def test_weight_readers_and_gates_run_without_jax(tmp_path):
         "assert np.array_equal(l['weights'], w), l\n"
         "assert l['biases'].tolist() == [1.0, -2.0], l\n"
         "assert t['PosePrior']['fc_xyz']['weights'].tolist() == [1.5, -2.0]\n"
+        "pp = phasepack.phase_pack_params({'conv1_2': {\n"
+        "    'weights': np.ones((3, 3, 2, 4), np.float32),\n"
+        "    'biases': np.zeros(4, np.float32)}})\n"
+        "assert pp['conv1_2']['weights_p2'].shape == (3, 4, 2, 8)\n"
         "print(sorted(m for m, v in sys.modules.items()\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r} and v is not None))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

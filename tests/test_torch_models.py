@@ -128,13 +128,20 @@ def test_load_npz_and_layout_conversion(tmp_path):
 
 
 def test_params_from_jax_rejects_unported_layouts():
-    """The phase-packed layout (hand3d_tpu.ops.phasepack) is out of scope;
-    the int8 and QAT layouts carry across (tests/test_torch_quant.py)."""
-    with pytest.raises(ValueError, match="weights_p2"):
+    """A leaf of no layout the port carries raises; the phase-packed kernel
+    (hand3d_tpu.ops.phasepack) goes HWIO -> OIHW like any conv kernel
+    (tests/test_torch_phasepack.py), the int8 and QAT layouts carry across
+    (tests/test_torch_quant.py)."""
+    with pytest.raises(ValueError, match="weights_p4"):
         weights.params_from_jax(
             {"HandSegNet": {"conv1_2": {
-                "weights_p2": np.zeros((3, 4, 64, 128), np.float32),
+                "weights_p4": np.zeros((3, 6, 64, 256), np.float32),
                 "biases": np.zeros(64, np.float32)}}}, "cpu")
+    hwio = np.arange(3 * 4 * 5 * 8, dtype=np.float32).reshape(3, 4, 5, 8)
+    packed = weights.params_from_jax(
+        {"conv1_2": {"weights_p2": hwio, "biases": np.zeros(4, np.float32)}},
+        "cpu")["conv1_2"]["weights_p2"]
+    np.testing.assert_array_equal(packed.numpy(), hwio.transpose(3, 2, 0, 1))
 
 
 @pytest.mark.parametrize("variant", j_poseprior.VARIANTS)

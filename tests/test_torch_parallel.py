@@ -51,7 +51,7 @@ from hand3d_tpu.parallel import pipeline as j_pipeline
 from hand3d_tpu.train import trainer as j_trainer
 from hand3d_tpu_torch import parity, weights
 from hand3d_tpu_torch.models import handsegnet, posenet
-from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.ops import nn, phasepack
 from hand3d_tpu_torch.parallel import expert, pipeline, spatial
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.serving import HandPoseEstimator
@@ -494,6 +494,23 @@ def test_spatial_partitioning_matches_one_process(ranks):
         assert (err <= GRAD_RTOL_OF_MAX * np.abs(ref).max()
                 or np.linalg.norm(mine - ref)
                 <= KINK_FLIP_REL_L2 * np.linalg.norm(ref)), path
+
+
+def test_spatial_partitioning_of_a_packed_tree_matches_one_process(ranks):
+    """conv1_2 phase-packed and fused with its pool under SP: a one-row halo
+    like a 3x3 conv, the fused pool under max_pool_2x2's row rule."""
+    spec = ranks.spec["sp"]
+    outs = [r["sp"] for r in ranks.results()]
+    got = _digests_agree(outs)["full"]
+    params = phasepack.phase_pack_params(
+        weights.params_from_jax(spec["params"], "cpu"))
+    with torch.no_grad():
+        seg = handsegnet.apply(params, torch.from_numpy(
+            spec["batch"]["image"]))[0]
+    np.testing.assert_allclose(got["seg_packed"], seg.numpy(), rtol=0,
+                               atol=SCOREMAP_ATOL)
+    for o in outs:
+        assert o["packed_errors"] == o["errors"]
 
 
 def test_spatial_partitioning_needs_heights_that_divide(ranks):

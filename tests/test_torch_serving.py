@@ -203,13 +203,17 @@ def test_seg_scale_estimator_matches_jax(jax_params, np_params):
 
 
 @pytest.mark.parametrize("kwargs, queue", [
-    ({"phase_pack": True}, "out of scope")])
+    ({"phase_pack": True}, "even input width")])
 def test_unported_options_raise(np_params, kwargs, queue):
-    with pytest.raises(NotImplementedError, match=queue):
-        serving.HandPoseEstimator(np_params, batch_size=1, device="cpu",
-                                  **kwargs)
-    with pytest.raises(NotImplementedError, match=queue):
-        serving.AutoBucketEstimator(np_params, device="cpu", **kwargs)
+    """phase_pack runs (tests/test_torch_phasepack.py) but refuses an odd
+    input width rather than fall back to the plain conv."""
+    odd = frames(1, 32, 34 - 1, seed=4)
+    with pytest.raises(ValueError, match=queue):
+        serving.HandPoseEstimator(np_params, batch_size=1, input_hw=(32, 33),
+                                  device="cpu", **kwargs).predict(odd)
+    with pytest.raises(ValueError, match=queue):
+        serving.AutoBucketEstimator(np_params, batch_size=1, device="cpu",
+                                    **kwargs).predict(odd)
 
 
 def test_estimator_on_a_one_rank_mesh_equals_no_mesh(np_params):

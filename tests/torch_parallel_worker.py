@@ -32,7 +32,7 @@ from hand3d_tpu_torch.cli import (eval2d, eval2d_gt_cropped, eval3d,
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.eval import harnesses
 from hand3d_tpu_torch.models import handsegnet
-from hand3d_tpu_torch.ops import nn
+from hand3d_tpu_torch.ops import nn, phasepack
 from hand3d_tpu_torch.parallel import collectives, expert, pipeline
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.serving import HandPoseEstimator
@@ -165,7 +165,8 @@ def layer_checks(spec, mesh, rank):
 def sp_checks(spec, mesh, rank):
     """HandSegNet with its activations split by rows over "model": the
     output (gathered over the batch) and the gradients of a DP+SP step;
-    the errors of heights that do not divide."""
+    the errors of heights that do not divide; the output and errors of the
+    tree with conv1_2 phase-packed."""
     params = trainer.init_state(weights.params_from_jax(spec["params"], "cpu"),
                                 trainer.make_optimizer([1.0], [])).params
     constrain = mesh_lib.spatial_constrainer(mesh)
@@ -183,15 +184,22 @@ def sp_checks(spec, mesh, rank):
 
     _, grads = trainer.DataParallelGrads(loss, mesh)(params, mine, (0, 0))
     g = flat_tf(trainer.tree_unflatten(params, grads))
-    errors = {}
+    packed = phasepack.phase_pack_params(params)
+    with torch.no_grad():
+        seg_packed = handsegnet.apply(packed, mine["image"],
+                                      constrain=constrain)[0]
+    seg_packed = mesh_lib.gather_rows({"seg": seg_packed}, mesh)["seg"]
+    errors, packed_errors = {}, {}
     for h in spec["bad_heights"]:
-        try:
-            handsegnet.apply(params, torch.zeros(1, h, 64, 3),
-                             constrain=constrain)
-        except ValueError as e:
-            errors[h] = str(e)
-    return report(rank, {"seg": seg, **{f"grad/{k}": v for k, v in g.items()}},
-                  errors=errors)
+        for tree, errs in ((params, errors), (packed, packed_errors)):
+            try:
+                handsegnet.apply(tree, torch.zeros(1, h, 64, 3),
+                                 constrain=constrain)
+            except ValueError as e:
+                errs[h] = str(e)
+    return report(rank, {"seg": seg, "seg_packed": seg_packed.numpy(),
+                         **{f"grad/{k}": v for k, v in g.items()}},
+                  errors=errors, packed_errors=packed_errors)
 
 
 def pp_checks(spec, rank):
