@@ -195,7 +195,17 @@ line is printed:
    retrained snapshots through the four harnesses on the card; bench_input
    (the C++ streamer and memmap, records/s beside the resident PoseNet
    step); release_check with its preset step alone, its record stamped with
-   nvidia-smi's line.
+   nvidia-smi's line;
+18. orbax: (a) train_posenet at full width (batch 8, 256x256 crops) for 2
+   steps on the card, save_orbax, restore_orbax into a fresh template on
+   the card: every param, Adam moment and count bit-equal, and one more
+   step from the original and from the restored state bit-equal, under
+   deterministic algorithms in a child process (CUBLAS_WORKSPACE_CONFIG),
+   with the checkpoint's bytes and the save and restore seconds; (b) the
+   JAX-made checkpoint of tests/torch_fixtures/orbax_jax (OCDBT, zstd,
+   Huffman-coded blocks) restored into a template on the card, every leaf
+   equal to its .npz bit for bit, the zstd decoder's MB/s over its chunks
+   and the restore time that rate implies for (a)'s bytes (derived).
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -253,7 +263,7 @@ from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
 from hand3d_tpu_torch.tools import (bench_input, create_binary_db,
                                     run_baseline_parity)
 from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
-from hand3d_tpu_torch.weights import tf_ckpt
+from hand3d_tpu_torch.weights import ocdbt, tf_ckpt, zstd
 
 CPU = torch.device("cpu")
 H, W = 240, 320  # the serving bucket of the JAX package's bench and demo
@@ -514,6 +524,13 @@ TOOLS_RECORDS = 16  # RHD and STB records of the drill
 TOOLS_BATCH = 8
 TOOLS_BENCH_RECORDS = 256
 TOOLS_RELEASE_TIMEOUT_S = 600
+# orbax: save_orbax / restore_orbax of train_posenet's full-width state, and
+# the JAX package's checkpoint of tests/torch_fixtures/orbax_jax on the card
+ORBAX_CHILD = "--orbax-child"
+ORBAX_STEPS = 2
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "torch_fixtures", "orbax_jax")
+ORBAX_DECODE_ROUNDS = 20
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -600,8 +617,9 @@ def phase_device():
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    # what an Orbax checkpoint reader could build on (zstd-compressed OCDBT
-    # nodes, zarr arrays) and what the tools read PNGs with
+    # what the tools read PNGs with, and that the storage packages of Orbax
+    # checkpoints are absent (the port reads them with weights/zstd.py,
+    # ocdbt.py and orbax.py)
     log("modules: " + json.dumps({
         m: importlib.util.find_spec(m) is not None
         for m in ("zstandard", "tensorstore", "zarr", "numcodecs", "PIL",
@@ -4455,6 +4473,128 @@ def phase_tools(dev, params_np, smi):
     return counts
 
 
+def directory_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_orbax(dev, smi):
+    """(a) in a child process (deterministic algorithms), (b) here."""
+    t_start = time.perf_counter()
+    zero_counts()
+    line = {"phase": "orbax", "card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train.bin")
+        write_rhd_file(data, TRAIN_RECORDS, np.random.default_rng(46))
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), ORBAX_CHILD, tmp,
+             data], env=env, capture_output=True, text=True, timeout=600)
+        sys.stderr.write(child.stderr[-4000:])
+        require(child.returncode == 0,
+                f"the orbax child process exited {child.returncode}")
+        line["full_width"] = json.loads(child.stdout.splitlines()[-1])
+
+    # (b) the JAX package's checkpoint: OCDBT nodes and zarr chunks in zstd
+    path = os.path.join(ORBAX_FIXTURE, "checkpoint", "2")
+    with np.load(os.path.join(ORBAX_FIXTURE, "expected.npz")) as f:
+        want = {k: f[k] for k in f.files}
+    tree = weights.flat_to_tree({k[len("params/"):]: v for k, v in
+                                 want.items() if k.startswith("params/")})
+    template = trainer.init_state(weights.params_from_jax(tree, dev),
+                                  trainer.make_optimizer([1e-4, 1e-5], [1]))
+    t0 = time.perf_counter()
+    restored = checkpoints.restore_orbax(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves = trainer.tree_leaves(restored.params)
+    require(all(p.device == dev for p in leaves), "restored off the card")
+    got = {f"params/{k}": v for k, v in weights.tree_to_flat(
+        weights.params_to_jax(restored.params)).items()}
+    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        moments = trainer.tree_unflatten(restored.params, [
+            restored.opt_state.state[p][key] for p in leaves])
+        got.update({f"opt_state/0/{name}/{k}": v for k, v in
+                    weights.tree_to_flat(weights.params_to_jax(
+                        moments)).items()})
+    counts = {float(restored.opt_state.state[p]["step"]) for p in leaves}
+    require(counts == {2.0} and restored.step == 2,
+            f"fixture: counts {counts}, step {restored.step}")
+    moments_and_params = {k: v for k, v in want.items()
+                          if "/count" not in k and k != "step"}
+    require(sorted(got) == sorted(moments_and_params) and all(
+        got[k].dtype == v.dtype and np.array_equal(got[k], v)
+        for k, v in moments_and_params.items()),
+        "the JAX-made checkpoint restored on the card differs from its .npz")
+    reader = ocdbt.OcdbtReader(path)
+    frames = [reader.read(k) for k in reader.list()
+              if not k.endswith(".zarray")]
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    rounds = []
+    for _ in range(ORBAX_DECODE_ROUNDS):
+        t0 = time.perf_counter()
+        for f in frames:
+            zstd.decompress(f)
+        rounds.append(time.perf_counter() - t0)
+    rate = decoded / float(np.median(rounds))
+    full_bytes = line["full_width"]["checkpoint_bytes"]
+    line["jax_fixture"] = {
+        "leaves": len(want), "restore_s": restore_s,
+        "zstd_frames": len(frames),
+        "zstd_bytes_in": sum(len(f) for f in frames),
+        "zstd_bytes_out": decoded, "decoder_mb_per_s": rate / 1e6,
+        "derived_restore_s_of_full_width_at_decoder_rate":
+            full_bytes / rate}
+    line["launches"] = kernel_counts()  # none: no kernel on this path
+    line["s"] = time.perf_counter() - t_start
+    log(json.dumps(line))
+    return line["launches"]
+
+
+def orbax_child(tmp, data):
+    """Phase 18 (a): train_posenet's state after 2 steps through
+    save_orbax and restore_orbax on the card, then one more step from
+    each; prints one JSON line."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    module, argv = train_argv("posenet", data, tmp, ORBAX_STEPS)
+    state = module.main(argv)
+    require(state.step == ORBAX_STEPS, f"stopped at {state.step}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoints.save_orbax(os.path.join(tmp, "orbax"), state)
+    save_s = time.perf_counter() - t0
+    job = module.setup(argv)
+    template = trainer.init_state(job.params, job.optimizer)
+    require(not all(torch.equal(x, y) for x, y in zip(
+        trainer.tree_leaves(state.params),
+        trainer.tree_leaves(template.params))),
+        "the fresh template already holds the trained params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoints.restore_orbax(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(states_equal(state, restored), "save_orbax + restore_orbax on "
+            "the card changed a param, an Adam moment or a count")
+    step = trainer.make_train_step(job.loss, job.optimizer)
+    raw = first_batch(job)
+    key = (job.options["seed"], ORBAX_STEPS)
+    a, _ = step(state, raw, key)
+    b, _ = step(restored, raw, key)
+    torch.cuda.synchronize()
+    require(states_equal(a, b), "one step from the restored state differs "
+            "from one step from the original")
+    require_exact_f32()
+    log(json.dumps({
+        "steps": ORBAX_STEPS, "batch": TRAIN_BATCH,
+        "leaves": len(trainer.tree_leaves(state.params)),
+        "checkpoint_bytes": directory_bytes(path), "save_s": save_s,
+        "restore_s": restore_s, "round_trip_bit_equal": True,
+        "next_step_bit_equal": True}))
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4485,7 +4625,8 @@ def main():
             ("mesh", lambda: phase_mesh(dev, params_np, smi)),
             ("parallel", lambda: phase_parallel(dev, params_np, smi)),
             ("phase_pack", lambda: phase_pack(dev, params_np, smi, err)),
-            ("tools", lambda: phase_tools(dev, params_np, smi))):
+            ("tools", lambda: phase_tools(dev, params_np, smi)),
+            ("orbax", lambda: phase_orbax(dev, smi))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0
@@ -4532,5 +4673,7 @@ if __name__ == "__main__":
         mesh_nccl_child(*sys.argv[2:])
     elif sys.argv[1:2] == [PARALLEL_CHILD]:
         parallel_child(*sys.argv[2:])
+    elif sys.argv[1:2] == [ORBAX_CHILD]:
+        orbax_child(*sys.argv[2:])
     else:
         main()

@@ -27,22 +27,31 @@ _lib = None
 
 
 class NativeUnavailable(RuntimeError):
-    """The record streamer's library cannot be built or opened."""
+    """A host library of the port (the record streamer, the zstd decoder)
+    cannot be built or opened."""
+
+
+def keyed_library_path(source, stem, build_dir):
+    """Where the g++ build of ``source`` lives in ``build_dir``: keyed by
+    the source's hash, so an edited source builds anew."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(build_dir, f"lib{stem}-{digest}.so")
 
 
 def library_path():
-    """Where the library of the current source is built (keyed by the
-    source's hash, so an edited source builds anew)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"librecordio-{digest}.so")
+    """Where the library of the current source is built."""
+    return keyed_library_path(SOURCE, "recordio", BUILD_DIR)
 
 
-def _build(lib):
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def build_host_library(source, lib, libs=()):
+    """Compile ``source`` with ``g++ -O3`` into ``lib``: to a temporary name
+    first, then renamed into place. Raises ``NativeUnavailable`` where g++
+    is missing or fails."""
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = f"{lib}.tmp.{os.getpid()}"
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", SOURCE, "-o", tmp,
-           "-lpthread"]
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", source, "-o", tmp,
+           *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -66,7 +75,7 @@ def load_library():
             raise NativeUnavailable(f"missing source: {SOURCE}")
         path = library_path()
         if not os.path.exists(path):
-            _build(path)
+            build_host_library(SOURCE, path, ("-lpthread",))
         try:
             lib = ctypes.CDLL(path)
         except OSError as e:

@@ -6,7 +6,8 @@ with TF layouts (conv kernels HWIO, dense kernels [in, out]), as
 makes it. This module reads and makes such trees with numpy alone, so the
 port runs where jax is not installed. The other formats' readers are
 ``convert`` (reference pickles, the warm-start rules), ``tf_ckpt`` (TF V2
-checkpoints) and ``flax_msgpack`` (the JAX package's training snapshots).
+checkpoints), ``flax_msgpack`` (the JAX package's training snapshots) and
+``orbax`` (Orbax checkpoints, over ``ocdbt`` and ``zstd``).
 """
 
 import numpy as np

@@ -97,12 +97,15 @@ def test_port_runs_without_jax():
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
-             "hand3d_tpu")
+             "hand3d_tpu", "zstandard", "tensorstore", "zarr", "numcodecs",
+             "orbax")
 
 
 def test_no_port_module_imports_what_the_card_lacks():
     """No module of the port and no line of chip_smoke.py imports jax,
-    flax, msgpack, ml_dtypes or the JAX package, at any depth."""
+    flax, msgpack, ml_dtypes, the JAX package or the storage packages of
+    Orbax checkpoints (zstandard, tensorstore, zarr, numcodecs, orbax), at
+    any depth."""
     import ast
 
     files = sorted((REPO / "hand3d_tpu_torch").rglob("*.py"))
@@ -120,10 +123,12 @@ def test_no_port_module_imports_what_the_card_lacks():
 
 
 def test_weight_readers_and_gates_run_without_jax(tmp_path):
-    """With jax, flax, msgpack, ml_dtypes and the JAX package blocked: a
-    reference pickle, a TF checkpoint with a bf16 tensor and a msgpack
-    snapshot load, the gates' and the dataset and host tools and the
-    writers import, and a phase-packed tree is made."""
+    """With jax, flax, msgpack, ml_dtypes, the JAX package, zstandard,
+    tensorstore, zarr, numcodecs and orbax blocked: a reference pickle, a
+    TF checkpoint with a bf16 tensor and a msgpack snapshot load, the
+    gates' and the dataset and host tools and the writers import, a
+    phase-packed tree is made, and the committed JAX-made Orbax checkpoint
+    (OCDBT, zstd) restores to its .npz through the port's readers."""
     code = (
         "import pickle, sys, numpy as np\n"
         f"for m in {FORBIDDEN!r}:\n"
@@ -164,6 +169,24 @@ def test_weight_readers_and_gates_run_without_jax(tmp_path):
         "    'weights': np.ones((3, 3, 2, 4), np.float32),\n"
         "    'biases': np.zeros(4, np.float32)}})\n"
         "assert pp['conv1_2']['weights_p2'].shape == (3, 4, 2, 8)\n"
+        "from hand3d_tpu_torch import weights\n"
+        "from hand3d_tpu_torch.train import checkpoints, trainer\n"
+        "from hand3d_tpu_torch.weights import ocdbt, orbax, zstd\n"
+        "fx = 'tests/torch_fixtures/orbax_jax/'\n"
+        "want = dict(np.load(fx + 'expected.npz'))\n"
+        "tree = weights.flat_to_tree({k[7:]: v for k, v in want.items()\n"
+        "                             if k.startswith('params/')})\n"
+        "tmpl = trainer.init_state(weights.params_from_jax(tree, 'cpu'),\n"
+        "                          trainer.make_optimizer([1e-4, 1e-5], [1]))\n"
+        "st = checkpoints.restore_orbax(fx + 'checkpoint/2', tmpl)\n"
+        "assert st.step == 2\n"
+        "got = weights.tree_to_flat(weights.params_to_jax(st.params))\n"
+        "nu = weights.tree_to_flat(weights.params_to_jax(\n"
+        "    trainer.tree_unflatten(st.params, [st.opt_state.state[p]\n"
+        "        ['exp_avg_sq'] for p in trainer.tree_leaves(st.params)])))\n"
+        "for k, v in got.items():\n"
+        "    assert np.array_equal(v, want['params/' + k]), k\n"
+        "    assert np.array_equal(nu[k], want['opt_state/0/nu/' + k]), k\n"
         "print(sorted(m for m, v in sys.modules.items()\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r} and v is not None))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
