@@ -205,7 +205,20 @@ line is printed:
    JAX-made checkpoint of tests/torch_fixtures/orbax_jax (OCDBT, zstd,
    Huffman-coded blocks) restored into a template on the card, every leaf
    equal to its .npz bit for bit, the zstd decoder's MB/s over its chunks
-   and the restore time that rate implies for (a)'s bytes (derived).
+   and the restore time that rate implies for (a)'s bytes (derived);
+19. measure: the three measuring tools through their entry points
+   (hand3d_tpu_torch.tools.profile_stages, memory_report, roofline) at full
+   width on the card: profile_stages at 240x320 for f32 at batches 1, 32
+   and 128, bf16 at 32 and 128 and int8 (f32 otherwise) at 1, every stage's
+   time finite and positive, the flood-fill kernel launched in the three
+   mask stages and the FULL cascade and nowhere else, the decode kernel in
+   decode_upsampled and the FULL cascade and nowhere else, the FULL
+   cascade's frames/s beside phase 5's; memory_report's default rows, the
+   batch-8 PoseNet step's temp at accum 2 below accum 1; roofline with the
+   card's measured rates, f32 at batches 1, 32 and 128 with --glue-ms from
+   profile_stages' crop_from_scoremap (flood fill, box and crop) and
+   decode_upsampled stages, its ms a frame at most the measured FULL
+   cascade's at the same batch (bf16 and int8 printed beside it).
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -261,6 +274,7 @@ from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
                                       DynamicBatcher, HandPoseEstimator,
                                       _map_back, _resize_to, normalize_images)
 from hand3d_tpu_torch.tools import (bench_input, create_binary_db,
+                                    memory_report, profile_stages, roofline,
                                     run_baseline_parity)
 from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
 from hand3d_tpu_torch.weights import ocdbt, tf_ckpt, zstd
@@ -531,6 +545,20 @@ ORBAX_STEPS = 2
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "torch_fixtures", "orbax_jax")
 ORBAX_DECODE_ROUNDS = 20
+# measure: profile_stages configurations (dtype, quantize, batch, iters),
+# the stages that must launch each kernel, and the stages whose ms a frame
+# are the roofline's glue: the crop stage runs the flood fill, the box and
+# the crop, so the flood-fill stage is not added to it a second time
+MEASURE_PROFILES = (("f32", None, 1, 20), ("f32", None, 32, 5),
+                    ("f32", None, 128, 3), ("bf16", None, 32, 5),
+                    ("bf16", None, 128, 3), ("f32", "int8", 1, 20))
+MEASURE_LAUNCHING = {
+    "flood_fill": ("single_obj_scoremap", "calc_center_bb",
+                   "crop_from_scoremap", "FULL cascade"),
+    "decode_upsampled": ("decode_upsampled", "FULL cascade")}
+MEASURE_GLUE = ("crop_from_scoremap", "decode_upsampled")
+MEASURE_CONV_STAGES = ("handsegnet", "posenet", "poseprior+viewpoint")
+MEASURE_ROOFLINE_BATCHES = (1, 32, 128)
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -4595,6 +4623,87 @@ def orbax_child(tmp, data):
         "next_step_bit_equal": True}))
 
 
+def measure_profiles(f32_fps):
+    """profile_stages at MEASURE_PROFILES: {(dtype, quantize, batch):
+    {stage: ms a batch}}, each stage's time and launches checked."""
+    out = {}
+    for dtype, quantize, b, iters in MEASURE_PROFILES:
+        argv = ["--batch", str(b), "--hw", str(H), str(W), "--dtype", dtype,
+                "--iters", str(iters)]
+        if quantize:
+            argv += ["--quantize", quantize]
+        rows = profile_stages.main(argv)
+        for r in rows:
+            require(np.isfinite(r["ms"]) and r["ms"] > 0,
+                    f"profile_stages {argv}: {r['stage']} took {r['ms']} ms")
+            for kernel, stages in MEASURE_LAUNCHING.items():
+                launched = r["launches"][kernel] > 0
+                require(launched == (r["stage"] in stages),
+                        f"profile_stages {argv}: {r['stage']} launched "
+                        f"{kernel} {r['launches'][kernel]} times")
+        ms = {r["stage"]: r["ms"] for r in rows}
+        out[(dtype, quantize, b)] = ms
+        conv = sum(ms[s] for s in MEASURE_CONV_STAGES)
+        log(json.dumps({
+            "measure": "profile_stages", "dtype": dtype,
+            "quantize": quantize, "batch": b,
+            "full_cascade_frames_per_s": b * 1e3 / ms["FULL cascade"],
+            "times_phase_f32_frames_per_s": (
+                f32_fps.get(b) if (dtype, quantize) == ("f32", None)
+                else None),
+            "conv_stages_share_of_full": conv / ms["FULL cascade"],
+            "glue_ms_per_frame": sum(ms[s] for s in MEASURE_GLUE) / b}))
+    return out
+
+
+def measure_roofline(profiles):
+    """roofline at f32 (required to bound the FULL cascade), bf16 and int8
+    at the profiled batches, the card's rates measured once."""
+    first = None
+    for dtype, quantize, b in [("f32", None, b)
+                               for b in MEASURE_ROOFLINE_BATCHES] + [
+            k for k in profiles if k[0] == "bf16" or k[1]]:
+        ms = profiles[(dtype, quantize, b)]
+        argv = ["--batch", str(b), "--image-hw", f"{H}x{W}", "--dtype", dtype,
+                "--glue-ms", repr(sum(ms[s] for s in MEASURE_GLUE) / b)]
+        if quantize:
+            argv.append("--int8")
+        if first is not None:
+            argv += ["--rate", repr(first["rates"][dtype] / 1e12),
+                     "--int8-rate", repr(first["rates"]["int8"] / 1e12),
+                     "--hbm", repr(first["hbm"] / 1e9)]
+        out = roofline.main(argv)
+        first = first or out
+        measured = ms["FULL cascade"] / b
+        log(json.dumps({
+            "measure": "roofline", "dtype": dtype, "int8": bool(quantize),
+            "batch": b, "predicted_ms_per_frame": out["ms_per_frame"],
+            "measured_ms_per_frame": measured,
+            "share_of_roofline": out["ms_per_frame"] / measured,
+            "rates_tflops": {p: r / 1e12 for p, r in out["rates"].items()},
+            "hbm_gbps": out["hbm"] / 1e9}))
+        if dtype == "f32":
+            require(out["ms_per_frame"] <= measured,
+                    f"roofline at batch {b}: {out['ms_per_frame']} ms a "
+                    f"frame predicted, {measured} measured: no bound")
+
+
+def phase_measure(f32_fps):
+    """profile_stages, memory_report and roofline on the card."""
+    zero_counts()
+    profiles = measure_profiles(f32_fps)
+    rows = {r["config"]: r for r in memory_report.main(["--hw", str(H),
+                                                         str(W)])}
+    temp = {acc: rows[f"posenet train step batch 8 accum={acc}"]["temp"]
+            for acc in (1, 2)}
+    log(json.dumps({"measure": "memory_report", "posenet_step_temp": temp,
+                    "accum2_over_accum1": temp[2] / temp[1]}))
+    require(temp[2] < temp[1], f"accum 2 does not lower the batch-8 "
+            f"PoseNet step's peak: {temp}")
+    measure_roofline(profiles)
+    return kernel_counts()
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4626,7 +4735,8 @@ def main():
             ("parallel", lambda: phase_parallel(dev, params_np, smi)),
             ("phase_pack", lambda: phase_pack(dev, params_np, smi, err)),
             ("tools", lambda: phase_tools(dev, params_np, smi)),
-            ("orbax", lambda: phase_orbax(dev, smi))):
+            ("orbax", lambda: phase_orbax(dev, smi)),
+            ("measure", lambda: phase_measure(f32_fps))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0

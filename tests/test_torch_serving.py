@@ -617,12 +617,15 @@ def test_dynamic_batcher_scatters_snap_hw():
 
 def test_no_port_module_imports_jax_or_the_jax_package():
     """Every module of hand3d_tpu_torch, and chip_smoke.py, read as source:
-    no import of jax, or of hand3d_tpu (which imports jax)."""
+    no import of jax, of hand3d_tpu (which imports jax) or of the root
+    tools/ (the JAX tools)."""
     repo = Path(__file__).resolve().parents[1]
     files = sorted((repo / "hand3d_tpu_torch").rglob("*.py"))
     files.append(repo / "chip_smoke.py")
     assert len(files) > 40
-    assert {"parallel/mesh.py", "utils/debug.py", "utils/profiling.py"} <= {
+    assert {"parallel/mesh.py", "utils/debug.py", "utils/profiling.py",
+            "tools/profile_stages.py", "tools/memory_report.py",
+            "tools/roofline.py"} <= {
         str(p.relative_to(repo / "hand3d_tpu_torch")) for p in files[:-1]}
     bad = []
     for path in files:
@@ -634,6 +637,6 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                 names = [node.module]
             for name in names:
                 if name.split(".")[0] in ("jax", "jaxlib", "hand3d_tpu",
-                                          "flax", "optax"):
+                                          "flax", "optax", "tools"):
                     bad.append(f"{path.relative_to(repo)}: {name}")
     assert bad == []
