@@ -213,9 +213,12 @@ line is printed:
    time finite and positive, the flood-fill kernel launched in the three
    mask stages and the FULL cascade and nowhere else, the decode kernel in
    decode_upsampled and the FULL cascade and nowhere else, the FULL
-   cascade's frames/s beside phase 5's; memory_report's default rows, the
-   batch-8 PoseNet step's temp at accum 2 below accum 1; roofline with the
-   card's measured rates, f32 at batches 1, 32 and 128 with --glue-ms from
+   cascade's frames/s beside phase 5's; memory_report's default rows, each
+   peak split into the tensors live at it and the scratch of the op it
+   falls in, the batch-8 PoseNet step's temp and its tensors' peak falling
+   from accum 1 to 2 to 4; roofline with the card's measured effective
+   rates (the device kernels of each reference shape named), f32 at
+   batches 1, 32 and 128 with --glue-ms from
    profile_stages' crop_from_scoremap (flood fill, box and crop) and
    decode_upsampled stages, its ms a frame at most the measured FULL
    cascade's at the same batch (bf16 and int8 printed beside it).
@@ -264,7 +267,8 @@ from hand3d_tpu_torch.models.poseprior import VARIANTS, PosePriorNetwork
 from hand3d_tpu_torch.ops import (keypoints, nn, phasepack, quant,
                                   segmentation)
 from hand3d_tpu_torch.ops.image import resize_bilinear
-from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
+from hand3d_tpu_torch.ops.kernels import (build, decode, floodfill,
+                                         kernel_counts)
 from hand3d_tpu_torch.parallel import collectives, expert, pipeline
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.cli import serve
@@ -276,6 +280,7 @@ from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
 from hand3d_tpu_torch.tools import (bench_input, create_binary_db,
                                     memory_report, profile_stages, roofline,
                                     run_baseline_parity)
+from hand3d_tpu_torch.tools.card import nvidia_smi
 from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
 from hand3d_tpu_torch.weights import ocdbt, tf_ckpt, zstd
 
@@ -559,6 +564,7 @@ MEASURE_LAUNCHING = {
 MEASURE_GLUE = ("crop_from_scoremap", "decode_upsampled")
 MEASURE_CONV_STAGES = ("handsegnet", "posenet", "poseprior+viewpoint")
 MEASURE_ROOFLINE_BATCHES = (1, 32, 128)
+MEASURE_ACCUMS = (1, 2, 4)  # memory_report's default --accum
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -638,10 +644,7 @@ def cuda_ms(fn, iters):
 def phase_device():
     require(torch.cuda.is_available(), "no CUDA device: the port's main "
             "path runs on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -981,11 +984,6 @@ def fixed_mask_times(dev, b, iters=20):
                 det_t, seed_t, NUM_PASSES), iters),
             "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
             "passes": fb["passes"]}))
-
-
-def kernel_counts():
-    return {"flood_fill": floodfill.launches,
-            "decode_upsampled": decode.launches}
 
 
 def zero_counts():
@@ -4656,50 +4654,87 @@ def measure_profiles(f32_fps):
     return out
 
 
+def roofline_cli(argv):
+    """``python -m hand3d_tpu_torch.tools.roofline`` in a process of its
+    own: its summary line, every reference shape's device kernels required.
+    In this script's process, after the earlier phases, torch.profiler
+    returned no device kernel, so the rates are measured where a user
+    measures them, in a fresh process."""
+    child = subprocess.run(
+        [sys.executable, "-m", "hand3d_tpu_torch.tools.roofline", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    sys.stdout.write(child.stdout)
+    sys.stderr.write(child.stderr[-4000:])
+    require(child.returncode == 0, f"roofline {argv} exited "
+            f"{child.returncode}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    for path, m in out["measured"].items():
+        for shape, names in m["kernels"].items():
+            require(names, f"roofline named no device kernel of {path} "
+                    f"{shape}")
+    return out
+
+
 def measure_roofline(profiles):
     """roofline at f32 (required to bound the FULL cascade), bf16 and int8
-    at the profiled batches, the card's rates measured once."""
+    at the profiled batches: the CLI's first run measures the card's rates,
+    and ``roofline.roofline`` takes them for the rest."""
     first = None
+    layers = roofline.stage_layers((H, W))
     for dtype, quantize, b in [("f32", None, b)
                                for b in MEASURE_ROOFLINE_BATCHES] + [
             k for k in profiles if k[0] == "bf16" or k[1]]:
         ms = profiles[(dtype, quantize, b)]
-        argv = ["--batch", str(b), "--image-hw", f"{H}x{W}", "--dtype", dtype,
-                "--glue-ms", repr(sum(ms[s] for s in MEASURE_GLUE) / b)]
-        if quantize:
-            argv.append("--int8")
-        if first is not None:
-            argv += ["--rate", repr(first["rates"][dtype] / 1e12),
-                     "--int8-rate", repr(first["rates"]["int8"] / 1e12),
-                     "--hbm", repr(first["hbm"] / 1e9)]
-        out = roofline.main(argv)
-        first = first or out
+        glue = sum(ms[s] for s in MEASURE_GLUE) / b
+        if first is None:
+            require(not quantize, "the rates are measured at f32 or bf16")
+            out = first = roofline_cli([
+                "--batch", str(b), "--image-hw", f"{H}x{W}", "--dtype", dtype,
+                "--glue-ms", repr(glue)])
+        else:
+            out = roofline.roofline(layers, first["rates"], first["hbm"], b,
+                                    dtype, bool(quantize), glue_ms=glue)
         measured = ms["FULL cascade"] / b
         log(json.dumps({
             "measure": "roofline", "dtype": dtype, "int8": bool(quantize),
             "batch": b, "predicted_ms_per_frame": out["ms_per_frame"],
             "measured_ms_per_frame": measured,
             "share_of_roofline": out["ms_per_frame"] / measured,
-            "rates_tflops": {p: r / 1e12 for p, r in out["rates"].items()},
-            "hbm_gbps": out["hbm"] / 1e9}))
+            "rates_tflops": {p: r / 1e12
+                             for p, r in first["rates"].items()},
+            "hbm_gbps": first["hbm"] / 1e9}))
         if dtype == "f32":
             require(out["ms_per_frame"] <= measured,
                     f"roofline at batch {b}: {out['ms_per_frame']} ms a "
                     f"frame predicted, {measured} measured: no bound")
 
 
+def measure_memory():
+    """memory_report's default rows; the batch-8 PoseNet step's peak, and
+    its tensors' peak without the ops' scratch, required to fall from
+    accum 1 to 2 to 4."""
+    rows = {r["config"]: r for r in memory_report.main(["--hw", str(H),
+                                                         str(W)])}
+    steps = {acc: rows[f"posenet train step batch 8 accum={acc}"]
+             for acc in MEASURE_ACCUMS}
+    temp = {acc: r["temp"] for acc, r in steps.items()}
+    tensors = {acc: r["split"]["tensor_peak"] for acc, r in steps.items()}
+    log(json.dumps({"measure": "memory_report", "posenet_step_temp": temp,
+                    "posenet_step_split": {acc: r["split"]
+                                           for acc, r in steps.items()},
+                    "accum2_over_accum1": temp[2] / temp[1]}))
+    for few, many in zip(MEASURE_ACCUMS, MEASURE_ACCUMS[1:]):
+        require(temp[many] < temp[few] and tensors[many] < tensors[few],
+                f"accum {many} does not lower the batch-8 PoseNet step's "
+                f"peak below accum {few}'s: temp {temp}, tensors {tensors}")
+
+
 def phase_measure(f32_fps):
     """profile_stages, memory_report and roofline on the card."""
     zero_counts()
     profiles = measure_profiles(f32_fps)
-    rows = {r["config"]: r for r in memory_report.main(["--hw", str(H),
-                                                         str(W)])}
-    temp = {acc: rows[f"posenet train step batch 8 accum={acc}"]["temp"]
-            for acc in (1, 2)}
-    log(json.dumps({"measure": "memory_report", "posenet_step_temp": temp,
-                    "accum2_over_accum1": temp[2] / temp[1]}))
-    require(temp[2] < temp[1], f"accum 2 does not lower the batch-8 "
-            f"PoseNet step's peak: {temp}")
+    measure_memory()
     measure_roofline(profiles)
     return kernel_counts()
 

@@ -1,5 +1,5 @@
-"""What the measuring tools share: the device, its name and power limit,
-and a timer.
+"""What the measuring tools share: the ``--device`` flag, the card's name
+and power limit, and a timer.
 
 ``profile_stages``, ``memory_report`` and ``roofline`` report the card's own
 numbers, and a card may be set below its maximum power and then run slower
@@ -13,7 +13,8 @@ import time
 
 import torch
 
-from hand3d_tpu_torch import precision
+SMI_QUERY = ("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
 
 
 def add_device_arg(p):
@@ -23,11 +24,11 @@ def add_device_arg(p):
                         "twins and times on the host clock.")
 
 
-def resolve(name):
-    """The torch device ``name`` with TF32 off on a card
-    (``precision.exact_f32``); raises when a card is asked for and none is
-    present."""
-    return precision.exact_f32(name)
+def nvidia_smi():
+    """nvidia-smi's "NAME, LIMIT" lines, one a card; raises OSError or
+    ``subprocess.SubprocessError`` when they cannot be read."""
+    return subprocess.run(SMI_QUERY, capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
 
 
 def card(device):
@@ -39,10 +40,7 @@ def card(device):
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     try:
-        lines = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()
+        lines = nvidia_smi().splitlines()
         line = lines[min(index, len(lines) - 1)]
         name, power = (s.strip() for s in line.rsplit(",", 1))
     except (OSError, subprocess.SubprocessError, ValueError):

@@ -42,11 +42,11 @@ import json
 
 import torch
 
-from hand3d_tpu_torch import weights
+from hand3d_tpu_torch import precision, weights
 from hand3d_tpu_torch.models import cascade, posenet, poseprior
 from hand3d_tpu_torch.models.cascade import CROP_SIZE, ColorHandPose3D
 from hand3d_tpu_torch.ops.image import crop_image_from_xy
-from hand3d_tpu_torch.ops.kernels import decode, floodfill
+from hand3d_tpu_torch.ops.kernels import kernel_counts
 from hand3d_tpu_torch.ops.keypoints import decode_upsampled
 from hand3d_tpu_torch.ops.segmentation import (calc_center_bb,
                                                single_obj_scoremap)
@@ -117,11 +117,6 @@ def build_stages(net, params, batch, hw, seg_scale, device, generator,
     }
 
 
-def kernel_counts():
-    return {"flood_fill": floodfill.launches,
-            "decode_upsampled": decode.launches}
-
-
 def time_stage(fn, args, iters, device, warmup=2):
     """(ms a call of ``fn(*args)``, {kernel: launches in those calls})."""
     before = kernel_counts()
@@ -146,7 +141,7 @@ def parse_args(argv=None):
 def main(argv=None):
     """Print the per-stage table; returns the stages' JSON rows."""
     args = parse_args(argv)
-    device = card.resolve(args.device)
+    device = precision.exact_f32(args.device)
     info = card.card(device)
     net = ColorHandPose3D(compute_dtype=DTYPES[args.dtype],
                           seg_scale=args.seg_scale)

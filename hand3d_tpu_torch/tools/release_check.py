@@ -37,6 +37,8 @@ import sys
 import tempfile
 import time
 
+from hand3d_tpu_torch.tools import card as card_lib
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -58,13 +60,9 @@ def git_rev():
 def card():
     """nvidia-smi's name and power limit line, or why there is none."""
     try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-    except (OSError, subprocess.TimeoutExpired) as e:
+        return card_lib.nvidia_smi()
+    except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable: {e}"
-    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
 def last_json_line(text):

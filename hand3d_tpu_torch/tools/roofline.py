@@ -9,13 +9,20 @@ ViewpointNet towers of ``models.poseprior``) and charges each convolution
 
 per frame, where
 
-* R is the conv rate of the compute path the layer runs, measured on this
-  card at start: the best of the three reference shapes (3x3x256 @ 60x80,
-  3x3x512 @ 30x40, 7x7x128 @ 32x32, batch 32) through ``ops.nn.conv2d``,
-  the op the model calls, for each path the port runs: "f32" (cuDNN with
-  TF32 off, as parity runs), "bf16" (the bf16 mode: operands rounded to
-  bf16, TF32 convs) and "int8" (``ops.quant``'s int8 layers today: TF32
-  convs of integer-valued f32, with their quantize and dequantize);
+* R is the effective conv rate of the compute path the layer runs,
+  measured on this card at start: the direct convolution's FLOPs
+  (2 h w k^2 cin cout a frame) over the time of ``ops.nn.conv2d``, the op
+  the model calls, on the three reference shapes (3x3x256 @ 60x80,
+  3x3x512 @ 30x40, 7x7x128 @ 32x32, batch 32), the best of them, for each
+  path the port runs: "f32" (cuDNN with TF32 off, as parity runs), "bf16"
+  (the bf16 mode: operands rounded to bf16, TF32 convs) and "int8"
+  (``ops.quant``'s int8 layers today: TF32 convs of integer-valued f32,
+  with their quantize and dequantize). cuDNN picks the algorithm: an FFT
+  or Winograd one does fewer multiplies than the direct conv, so its
+  effective rate can pass the card's peak for the type. On a card the
+  tool names the device kernels each reference shape ran, which tell the
+  algorithm. The best shape's rate is the layers' rate, the highest and
+  so the loosest bound of the three;
 * bytes are the layer's activations in and out at its output resolution
   plus its weights amortized over ``--batch``, at the path's operand size:
   4 bytes on every path today, since the bf16 mode and the int8 layers keep
@@ -40,15 +47,15 @@ printing ``conv7_*`` and ``conv8_*``, where the model's are ``conv6_*`` and
 ``conv7_*``. Its comment amortizes the weights over the batch, which its
 code never reads; here ``--batch`` does.
 
-``--rate`` and ``--hbm`` (and ``--int8-rate`` with ``--int8``) override
-the measured numbers; given all it needs, the tool measures nothing and
+``--rate`` (the ``--dtype`` path's) and ``--hbm`` override the measured
+numbers; given both and no ``--int8``, the tool measures nothing and
 touches no device.
 
 Usage:
   python -m hand3d_tpu_torch.tools.roofline --batch 128
       [--image-hw 240x320] [--seg-scale 1.0] [--dtype f32|bf16]
       [--int8 [--int8-scope handsegnet]] [--glue-ms MS] [--per-layer]
-      [--rate TFLOPS] [--int8-rate TFLOPS] [--hbm GBPS] [--device cuda]
+      [--rate TFLOPS] [--hbm GBPS] [--device cuda]
 """
 
 import argparse
@@ -57,6 +64,7 @@ import json
 
 import torch
 
+from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.models import handsegnet, posenet, poseprior
 from hand3d_tpu_torch.models.cascade import CROP_SIZE
 from hand3d_tpu_torch.ops import nn, quant
@@ -153,24 +161,48 @@ def _conv_fn(path, k, c, device, generator):
     return lambda x: nn.conv2d(x, layer, compute_dtype=dtype)
 
 
+def device_kernels(fn, args):
+    """Names of the device kernels one call of ``fn(*args)`` runs on the
+    card, the longest first."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode(), \
+            torch.profiler.profile(activities=acts) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+
+    def device_us(evt):
+        return (getattr(evt, "self_device_time_total", None)
+                or getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.key for e in sorted(kernels, key=lambda e: -device_us(e))]
+
+
 def measure_rates(device, paths=PATHS, shapes=REFERENCE_SHAPES,
                   batch=RATE_BATCH, iters=10):
-    """{path: {"rate": FLOP/s, "shape": its best shape, "by_shape": {...}}}
-    of ``ops.nn.conv2d`` on ``device``."""
+    """{path: {"rate": FLOP/s, "shape": its best shape, "by_shape": {...},
+    "kernels": {shape: device kernel names} (on a card)}} of
+    ``ops.nn.conv2d`` on ``device``; a rate counts the direct conv's
+    FLOPs."""
     generator = torch.Generator().manual_seed(0)
+    on_card = torch.device(device).type == "cuda"
     out = {}
     for path in paths:
-        by_shape = {}
+        by_shape, kernels = {}, {}
         for k, c, h, w in shapes:
             x = torch.randn((batch, c, h, w), generator=generator).to(device)
             fn = _conv_fn(path, k, c, device, generator)
             ms = card.time_ms(fn, (x,), iters, device)
-            by_shape[f"{k}x{k}x{c}@{h}x{w}"] = (
-                2.0 * batch * h * w * k * k * c * c / (ms / 1e3))
+            shape = f"{k}x{k}x{c}@{h}x{w}"
+            by_shape[shape] = 2.0 * batch * h * w * k * k * c * c / (ms / 1e3)
+            if on_card:
+                kernels[shape] = device_kernels(fn, (x,))
             del x, fn
         best = max(by_shape, key=by_shape.get)
         out[path] = {"rate": by_shape[best], "shape": best,
-                     "by_shape": by_shape}
+                     "by_shape": by_shape, "kernels": kernels}
     return out
 
 
@@ -234,8 +266,6 @@ def parse_args(argv=None):
     ap.add_argument("--per-layer", action="store_true")
     ap.add_argument("--rate", type=float, default=None,
                     help="TFLOP/s of the --dtype path instead of measuring")
-    ap.add_argument("--int8-rate", type=float, default=None,
-                    help="TFLOP/s of the int8 path instead of measuring")
     ap.add_argument("--hbm", type=float, default=None,
                     help="GB/s of HBM instead of measuring")
     card.add_device_arg(ap)
@@ -250,22 +280,26 @@ def main(argv=None):
     rates = {}
     if args.rate is not None:
         rates[args.dtype] = args.rate * 1e12
-    if args.int8_rate is not None:
-        rates["int8"] = args.int8_rate * 1e12
     hbm = None if args.hbm is None else args.hbm * 1e9
     need = {args.dtype, "int8"} if args.int8 else {args.dtype}
     measured = {}
     if not need <= set(rates) or hbm is None:
-        device = card.resolve(args.device)
+        device = precision.exact_f32(args.device)
         info = card.card(device)
         measured = measure_rates(device)
         for path, m in measured.items():
             rates.setdefault(path, m["rate"])
-            print(f"measured {path} conv rate: {m['rate'] / 1e12:.3f} TFLOP/s "
-                  f"(best {m['shape']}, batch {RATE_BATCH}; "
+            print(f"measured {path} effective conv rate (direct-conv FLOPs): "
+                  f"{m['rate'] / 1e12:.3f} TFLOP/s (best {m['shape']}, batch "
+                  f"{RATE_BATCH}; "
                   + ", ".join(f"{s} {r / 1e12:.3f}"
                               for s, r in m["by_shape"].items())
                   + f") on {card.label(info)}", flush=True)
+            for shape, names in m["kernels"].items():
+                print(f"  {path} {shape} kernels: "
+                      + ("; ".join(n[:90] for n in names[:3])
+                         or "none read (the profiler saw no device kernel)"),
+                      flush=True)
         if hbm is None:
             hbm = measure_hbm(device)
             print(f"measured HBM: {hbm / 1e9:.1f} GB/s (device-to-device copy "

@@ -36,7 +36,8 @@ from hand3d_tpu_torch import parity, weights
 from hand3d_tpu_torch.models import posenet
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.ops import segmentation
-from hand3d_tpu_torch.tools import memory_report, profile_stages, roofline
+from hand3d_tpu_torch.tools import (card, memory_report, profile_stages,
+                                    roofline)
 
 from test_torch_cascade import _jax_fields, _jax_rerun
 
@@ -168,7 +169,7 @@ def test_roofline_measures_rates_on_the_cpu():
                                    iters=1)
     assert set(rates) == set(roofline.PATHS)
     assert all(r["rate"] > 0 and r["shape"] == "3x3x8@6x8"
-               for r in rates.values())
+               and r["kernels"] == {} for r in rates.values())
     assert roofline.measure_hbm("cpu", nbytes=1 << 16, iters=1) > 0
 
 
@@ -197,15 +198,25 @@ def test_roofline_cli_prints_the_root_tools_rows(monkeypatch):
 # --- memory_report -----------------------------------------------------------
 
 MEMORY_ARGV = ["--device", "cpu", "--batches", "1", "--hw", "64", "64",
-               "--train-batch", "2", "--crop", "32", "--accum", "1", "2"]
+               "--skip-train"]
+TRAIN_ROWS = dict(batch=2, accums=[1, 2], crop=32)  # the CLI's: 8, 1 2 4, 256
 
 
 @pytest.fixture(scope="module")
 def memory_rows():
-    return run_main(memory_report.main, MEMORY_ARGV)
+    """(printed text, rows): the CLI's inference row and ``train_reports``'
+    rows at TRAIN_ROWS."""
+    text, rows = run_main(memory_report.main, MEMORY_ARGV)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows += memory_report.train_reports(
+            TRAIN_ROWS["batch"], TRAIN_ROWS["accums"], "cpu", card.card("cpu"),
+            crop=TRAIN_ROWS["crop"])
+    return text + out.getvalue(), rows
 
 
-def test_memory_report_cli_prints_the_root_tools_rows(memory_rows):
+def test_memory_report_cli_prints_the_root_tools_rows(memory_rows,
+                                                      monkeypatch):
     text, rows = memory_rows
     lines = text.splitlines()
     assert lines[0] == "backend: cpu (cpu)"
@@ -219,7 +230,37 @@ def test_memory_report_cli_prints_the_root_tools_rows(memory_rows):
         for col in ("args", "out", "temp", "code"):
             assert f" {col} " in line
         assert "n/a" in line and "—" in line
-    assert all(r["temp"] is None for r in rows)
+    assert all(r["temp"] is None and "split" not in r for r in rows)
+    # without --skip-train the CLI adds the train rows at the JAX tool's
+    # defaults: batch 8, accum 1 2 4, 256x256 crops
+    calls = []
+    for name in ("inference_reports", "train_reports"):
+        monkeypatch.setattr(memory_report, name, lambda *a, name=name, **k:
+                            calls.append((name, a[:3], k)) or [])
+    run_main(memory_report.main, MEMORY_ARGV[:-1])
+    cpu = torch.device("cpu")
+    assert calls == [("inference_reports", ([1], (64, 64), cpu), {}),
+                     ("train_reports", (8, [1, 2, 4], cpu), {})]
+    assert memory_report.CROP_SIZE == 256
+
+
+def test_memory_report_peak_split_reads_the_allocator(monkeypatch):
+    """PeakSplit's arithmetic on a scripted allocator: per op the bytes at
+    its start, its peak and the bytes at its return."""
+    reads = iter([100,                # when the mode is made
+                  100, 150, 120,      # aten.add: a 20-byte output
+                  120, 900, 130,      # aten.mm: 770 bytes of scratch
+                  130, 140, 50])      # aten.sum: frees 80
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: next(reads))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda d: next(reads))
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda d: None)
+    x, y = torch.ones(2, 3), torch.ones(3, 2)
+    with memory_report.PeakSplit("cuda") as split:
+        (x + 1).mm(y).sum()
+    assert split.result() == {"peak": 800, "op": "aten.mm.default",
+                              "shapes": [[2, 3], [3, 2]], "tensors": 30,
+                              "scratch": 770, "tensor_peak": 30}
 
 
 def test_memory_report_inference_matches_jax_memory_analysis(memory_rows):
@@ -242,7 +283,8 @@ def test_memory_report_train_args_are_the_state_and_the_batch(memory_rows):
     param_bytes = sum(a["weights"].nbytes + a["biases"].nbytes
                       for a in tree.values())
     counters = 4 * 2 * len(tree)  # a float32 step a leaf
-    batch = 4 * 2 * (32 * 32 * 3 + 32 * 32 * 21 + 21)
+    b, c = TRAIN_ROWS["batch"], TRAIN_ROWS["crop"]
+    batch = 4 * b * (c * c * 3 + c * c * 21 + 21)
     for row in memory_rows[1][1:]:
         assert row["args"] == 3 * param_bytes + counters + batch
         assert row["out"] == 3 * param_bytes + counters + 4  # + the loss
