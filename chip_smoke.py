@@ -4,9 +4,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --mesh-cards N`` runs the device, build, mesh and
-parallel phases alone, with one NCCL rank on each of N cards instead of two
-gloo ranks on one.
+``python3 chip_smoke.py --mesh-cards N`` runs the device, build, mesh,
+parallel and scaling phases alone, with one NCCL rank on each of N cards
+instead of gloo ranks on one.
 
 Phases, in order; any failure raises and exits non-zero before the result
 line is printed:
@@ -221,7 +221,17 @@ line is printed:
    batches 1, 32 and 128 with --glue-ms from
    profile_stages' crop_from_scoremap (flood fill, box and crop) and
    decode_upsampled stages, its ms a frame at most the measured FULL
-   cascade's at the same batch (bf16 and int8 printed beside it).
+   cascade's at the same batch (bf16 and int8 printed beside it); each
+   kernel's launches in one ColorHandPose3D.inference at batches 1 and 32;
+20. scaling: the scaling record (hand3d_tpu_torch.tools.scaling_record),
+   data-parallel weak scaling of the full-width PoseNet train step at
+   per-device batch 2: its measure() at 32x32 crops on n = 1, 2 gloo ranks
+   sharing the card and at the 256x256 training crop on one rank, 5 steps
+   each (under --mesh-cards N, its CLI at its defaults on the first N
+   cards, one NCCL rank a card, n = 1, 2, 4 up to N, and measure() at the
+   training crop on the same ranks, 10 steps). Every row's step times
+   finite and positive, its gradient bytes PoseNet's 70,075,388, and the
+   bytes each rank all-reduces a step those plus the scalars the row names.
 
 Standard output ends with one JSON line per timed batch, per serving check,
 per eval harness and per training stage, the seconds of each phase, the
@@ -236,6 +246,7 @@ import io
 import json
 import os
 import pickle
+import signal
 import socket
 import subprocess
 import sys
@@ -279,8 +290,10 @@ from hand3d_tpu_torch.serving import (AutoBucketEstimator, DeviceParams,
                                       _map_back, _resize_to, normalize_images)
 from hand3d_tpu_torch.tools import (bench_input, create_binary_db,
                                     memory_report, profile_stages, roofline,
-                                    run_baseline_parity)
+                                    run_baseline_parity, scaling_record)
 from hand3d_tpu_torch.tools.card import nvidia_smi
+from hand3d_tpu_torch.tools.scaling_record import (counted_collectives,
+                                                   run_processes)
 from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
 from hand3d_tpu_torch.weights import ocdbt, tf_ckpt, zstd
 
@@ -565,6 +578,16 @@ MEASURE_GLUE = ("crop_from_scoremap", "decode_upsampled")
 MEASURE_CONV_STAGES = ("handsegnet", "posenet", "poseprior+viewpoint")
 MEASURE_ROOFLINE_BATCHES = (1, 32, 128)
 MEASURE_ACCUMS = (1, 2, 4)  # memory_report's default --accum
+MEASURE_CALL_BATCHES = (1, 32)  # launches in one cascade call
+# scaling: measure() at 32x32 on SCALING_RANKS ranks (gloo, sharing the one
+# card) and at the training crop on one, SCALING_STEPS timed steps; under
+# --mesh-cards N the record's CLI at its defaults and measure() at the
+# training crop, one NCCL rank a card, n = 1, 2, 4 up to N
+SCALING_RANKS = (1, 2)
+SCALING_STEPS = 5
+SCALING_CROP = 256
+SCALING_GRADIENT_BYTES = 70_075_388  # PoseNet's 17,518,847 f32 params
+SCALING_TIMEOUT_S = 600
 EXPORT_CHILD_CODE = """
 import json, sys, time
 import numpy as np
@@ -3160,24 +3183,6 @@ def digest(tensors):
     return h.hexdigest()
 
 
-@contextlib.contextmanager
-def counted_all_reduce():
-    """Count the calls and bytes of torch.distributed.all_reduce."""
-    sent = {"calls": 0, "bytes": 0}
-    base = torch.distributed.all_reduce
-
-    def counting(tensor, *args, **kwargs):
-        sent["calls"] += 1
-        sent["bytes"] += tensor.numel() * tensor.element_size()
-        return base(tensor, *args, **kwargs)
-
-    torch.distributed.all_reduce = counting
-    try:
-        yield sent
-    finally:
-        torch.distributed.all_reduce = base
-
-
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3207,14 +3212,15 @@ def mesh_dp_steps(mesh, rank, data, tmp, dev):
             raw = next(it)
             sync(dev)
             t0 = time.perf_counter()
-            with counted_all_reduce() as sent:
+            with counted_collectives() as sent:
                 loss, grads = grads_of(state.params, raw, (seed, i))
             sync(dev)
             grad_s = time.perf_counter() - t0
             whole = mesh_lib.gather_rows(raw, mesh)
+            reduced = sent.get("all_reduce", {"calls": 0, "bytes": 0})
             step = {"loss": loss.item(), "vis": int(raw["kp_vis"].sum()),
-                    "allreduce_calls": sent["calls"],
-                    "allreduce_bytes": sent["bytes"]}
+                    "allreduce_calls": reduced["calls"],
+                    "allreduce_bytes": reduced["bytes"]}
             if rank == 0:
                 ref_loss, ref_grads = trainer.value_and_grad(
                     job.loss, state.params, whole,
@@ -3358,29 +3364,6 @@ def mesh_nccl_child(tmp, data):
                       "ms_turns": ms}), flush=True)
 
 
-def run_children(cmds, env=None):
-    """Start every command at once; wait (MESH_TIMEOUT_S) and return each
-    one's last JSON line; a child that fails fails the phase."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env)
-             for c in cmds]
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=MESH_TIMEOUT_S)
-            outs.append((p.returncode, out))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rc, out in outs:
-        require(rc == 0, f"a mesh child exited {rc}:\n{out[-4000:]}")
-    # a child's last JSON line (library warnings may follow it on stderr)
-    return [json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
-            for _, out in outs]
-
-
 def mesh_eval_held(params_np, evalfile, dev, world):
     """Where the ranks' dists differ from one process's: per batch, the
     cascade on each rank's rows (the card's algorithms at that batch) held
@@ -3433,7 +3416,7 @@ def phase_mesh(dev, params_np, smi, cards=1):
         write_rhd_file(evalfile, MESH_EVAL_RECORDS, rng)
         port = free_port()
         t0 = time.perf_counter()
-        ranks = run_children([
+        ranks = run_processes([
             [sys.executable, me, MESH_CHILD, str(r), str(world), str(port),
              tmp, data, evalfile, devices[r], backend]
             for r in range(world)])
@@ -3530,8 +3513,8 @@ def phase_mesh(dev, params_np, smi, cards=1):
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                        CUBLAS_WORKSPACE_CONFIG=":4096:8")
             t0 = time.perf_counter()
-            (nccl,) = run_children(
-                [[sys.executable, me, MESH_NCCL_CHILD, tmp, data]], env=env)
+            (nccl,) = run_processes(
+                [[sys.executable, me, MESH_NCCL_CHILD, tmp, data]], [env])
             line["nccl"] = nccl
             line["nccl_child_s"] = time.perf_counter() - t0
     require_exact_f32()
@@ -3575,44 +3558,6 @@ def cascade_loss(params, data, generator):
         params, data["lifting_scoremap"], data["hand_side"], train=True,
         generator=generator)
     return l_seg + l_pose + losses.lifting_loss("proposed", lift, data)
-
-
-@contextlib.contextmanager
-def counted_collectives():
-    """Count the calls and the bytes this rank sends through each
-    torch.distributed collective (the collectives of the port look them up
-    at each call)."""
-    sent = {}
-    dist = torch.distributed
-    names = ("all_reduce", "all_gather", "all_gather_into_tensor",
-             "reduce_scatter_tensor", "all_to_all_single", "broadcast",
-             "batch_isend_irecv")
-    base = {n: getattr(dist, n) for n in names}
-
-    def nbytes(name, args):
-        if name == "batch_isend_irecv":
-            return sum(op.tensor.numel() * op.tensor.element_size()
-                       for op in args[0] if op.op is dist.isend)
-        t = args[1] if name in ("all_gather", "all_gather_into_tensor",
-                                "reduce_scatter_tensor",
-                                "all_to_all_single") else args[0]
-        return t.numel() * t.element_size()
-
-    def counting(name):
-        def call(*args, **kwargs):
-            c = sent.setdefault(name, {"calls": 0, "bytes": 0})
-            c["calls"] += 1
-            c["bytes"] += nbytes(name, args)
-            return base[name](*args, **kwargs)
-        return call
-
-    for n in names:
-        setattr(dist, n, counting(n))
-    try:
-        yield sent
-    finally:
-        for n in names:
-            setattr(dist, n, base[n])
 
 
 def local_shapes(tree, paths):
@@ -4027,7 +3972,7 @@ def phase_parallel(dev, params_np, smi, cards=1):
                        np.random.default_rng(37))
         port = free_port()
         t0 = time.perf_counter()
-        ranks = run_children([
+        ranks = run_processes([
             [sys.executable, me, PARALLEL_CHILD, str(r), str(world),
              str(port), tmp, devices[r], backend] for r in range(world)])
         line["children_s"] = time.perf_counter() - t0
@@ -4730,13 +4675,118 @@ def measure_memory():
                 f"peak below accum {few}'s: temp {temp}, tensors {tensors}")
 
 
-def phase_measure(f32_fps):
-    """profile_stages, memory_report and roofline on the card."""
+def launches_per_cascade_call(dev):
+    """Each kernel's launches in one ``ColorHandPose3D.inference`` at each
+    of MEASURE_CALL_BATCHES (240x320, random weights): what a main-path
+    call costs in launches, whatever the script runs around it."""
+    net = ColorHandPose3D()
+    params = weights.params_from_jax(weights.random_params(0), dev)
+    per_call = {}
+    for b in MEASURE_CALL_BATCHES:
+        image = torch.rand((b, H, W, 3), generator=torch.Generator()
+                           .manual_seed(b)).to(dev) - 0.5
+        hand_side = torch.tensor([[1.0, 0.0]], device=dev).repeat(b, 1)
+        with torch.inference_mode():
+            before = kernel_counts()
+            net.inference(params, image, hand_side)
+            sync(dev)
+        per_call[b] = {k: n - before[k] for k, n in kernel_counts().items()}
+        for name, n in per_call[b].items():
+            require(n > 0, f"one cascade call at batch {b} never launched "
+                    f"{name}")
+    log(json.dumps({"measure": "launches_per_cascade_call",
+                    "by_batch": per_call}))
+
+
+def phase_measure(dev, f32_fps):
+    """profile_stages, memory_report and roofline on the card, and each
+    kernel's launches in one cascade call."""
     zero_counts()
     profiles = measure_profiles(f32_fps)
     measure_memory()
     measure_roofline(profiles)
+    launches_per_cascade_call(dev)
     return kernel_counts()
+
+
+# --- scaling: the scaling record's rows --------------------------------------
+
+
+def scaling_cli(cards):
+    """``python -m hand3d_tpu_torch.tools.scaling_record`` at its defaults
+    on the first ``cards`` cards, in a process group of its own, as a user
+    runs it: its summary line. Past SCALING_TIMEOUT_S the whole group, its
+    ranks included, is killed and the phase fails."""
+    env = dict(os.environ,
+               CUDA_VISIBLE_DEVICES=",".join(map(str, range(cards))))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "hand3d_tpu_torch.tools.scaling_record"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = child.communicate(timeout=SCALING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(child.pid, signal.SIGKILL)
+        child.communicate()
+        raise RuntimeError(f"scaling_record ran past {SCALING_TIMEOUT_S} s; "
+                           "its process group was killed")
+    sys.stderr.write(err[-4000:])
+    require(child.returncode == 0, f"scaling_record exited "
+            f"{child.returncode}:\n{out[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def require_scaling_rows(rows, backend):
+    """Each row's backend, finite positive times, PoseNet's gradient bytes,
+    and the bytes all-reduced a step equal to those plus the named
+    scalars (a group of one at n_data 1 reduces them too)."""
+    for r in rows:
+        at = f"scaling row n_data {r['n_data']} at {r['size']}^2"
+        require(r["backend"] == backend, f"{at}: backend {r['backend']}")
+        for k in ("step_ms_median", "step_ms_min", "first_step_s"):
+            require(np.isfinite(r[k]) and r[k] > 0, f"{at}: {k} {r[k]}")
+        require(r["gradient_bytes"] == SCALING_GRADIENT_BYTES,
+                f"{at}: {r['gradient_bytes']} gradient bytes")
+        require(r["collective_bytes_per_step"] == r["gradient_bytes"] + sum(
+            r["scalar_bytes"].values()), f"{at}: "
+            f"{r['collective_bytes_per_step']} bytes all-reduced, "
+            f"{r['gradient_bytes']} of gradients and {r['scalar_bytes']}")
+
+
+def phase_scaling(smi, cards=1):
+    """The scaling record on the card. ``cards=1``: measure() at 32x32 on
+    SCALING_RANKS ranks, where the tool places them (gloo ranks sharing a
+    one-card host's card), and on one rank at the training crop, each at
+    SCALING_STEPS steps. ``cards`` > 1: the CLI at its defaults on the
+    first ``cards`` cards (one NCCL rank a card), and measure() at the
+    training crop for the same rank counts and steps."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' memory, not this process's cache
+    defaults = scaling_record.parse_args([])
+    if cards == 1:
+        backend, _ = scaling_record.placement(max(SCALING_RANKS), "cuda")
+        steps, counts = SCALING_STEPS, (1,)
+        rows = scaling_record.against_ideal([
+            scaling_record.measure(n, defaults.per_device_batch, steps)
+            for n in SCALING_RANKS])
+    else:
+        backend, steps = "nccl", defaults.steps
+        counts = tuple(n for n in scaling_record.RANKS if n <= cards)
+        rows = scaling_cli(cards)["rows"]
+        require([r["n_data"] for r in rows] == list(counts),
+                f"scaling_record ran n_data {[r['n_data'] for r in rows]}")
+    t0 = time.perf_counter()
+    crop_rows = scaling_record.against_ideal([
+        scaling_record.measure(n, defaults.per_device_batch, steps,
+                               size=SCALING_CROP)
+        for n in counts])
+    crop_s = time.perf_counter() - t0
+    require_scaling_rows(rows + crop_rows, backend)
+    log(json.dumps({"phase": "scaling", "card": smi, "backend": backend,
+                    "steps": steps, "rows": rows, "crop_rows": crop_rows,
+                    "crop_s": crop_s, "s": time.perf_counter() - t_phase}))
+    return dict.fromkeys(KERNELS, 0)
 
 
 def main():
@@ -4771,7 +4821,8 @@ def main():
             ("phase_pack", lambda: phase_pack(dev, params_np, smi, err)),
             ("tools", lambda: phase_tools(dev, params_np, smi)),
             ("orbax", lambda: phase_orbax(dev, smi)),
-            ("measure", lambda: phase_measure(f32_fps))):
+            ("measure", lambda: phase_measure(dev, f32_fps)),
+            ("scaling", lambda: phase_scaling(smi))):
         t0 = time.perf_counter()
         launches.append(phase())
         phase_s[name] = time.perf_counter() - t0
@@ -4789,9 +4840,9 @@ def main():
 
 
 def main_cards(cards):
-    """``chip_smoke.py --mesh-cards N``: the mesh and parallel phases alone
-    with one NCCL rank on each of N cards; the rest of the script is the
-    one-card run's."""
+    """``chip_smoke.py --mesh-cards N``: the mesh, parallel and scaling
+    phases alone with one NCCL rank on each of N cards; the rest of the
+    script is the one-card run's."""
     cards = int(cards)
     smi = phase_device()
     require(torch.cuda.device_count() >= cards,
@@ -4801,6 +4852,7 @@ def main_cards(cards):
     phase_build()
     phase_mesh(dev, weights.random_params(0), smi, cards)
     phase_parallel(dev, weights.random_params(0), smi, cards)
+    phase_scaling(smi, cards)
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
