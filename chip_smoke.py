@@ -598,15 +598,15 @@ load_s = time.perf_counter() - t0
 kernels = sys.modules["hand3d_tpu_torch.ops.kernels"]
 images = np.load(sys.argv[2])
 est.warmup()
-kernels.floodfill.launches = kernels.decode.launches = 0
+before = kernels.kernel_counts()
 t0 = time.perf_counter()
 out = est.predict(images)
 predict_s = time.perf_counter() - t0
 np.savez(sys.argv[3], **out)
 print(json.dumps({"load_s": load_s, "predict_s": predict_s,
                   "meta": est.meta,
-                  "launches": {"flood_fill": kernels.floodfill.launches,
-                               "decode_upsampled": kernels.decode.launches},
+                  "launches": {k: n - before[k] for k, n in
+                               kernels.kernel_counts().items()},
                   "model_modules": sorted(
                       m for m in sys.modules
                       if m.startswith("hand3d_tpu_torch.models")),
@@ -871,11 +871,9 @@ def phase_slice(dev, params_np, err):
     rng = np.random.default_rng(1)
     requests = [rng.integers(0, 256, (n, H, W, 3), dtype=np.uint8)
                 for n in REQUESTS]
-    floodfill.launches = 0
-    decode.launches = 0
+    zero_counts()
     outs = [est.predict(r) for r in requests]
-    counts = {"flood_fill": floodfill.launches,
-              "decode_upsampled": decode.launches}
+    counts = launch_counts()
     log(f"served {len(requests)} requests of {REQUESTS} images; "
         f"kernel launches {counts}")
     for name, n in counts.items():
@@ -1009,9 +1007,18 @@ def fixed_mask_times(dev, b, iters=20):
             "passes": fb["passes"]}))
 
 
+_launch_base = {"flood_fill": 0, "decode_upsampled": 0}
+
+
 def zero_counts():
-    floodfill.launches = 0
-    decode.launches = 0
+    """Count the kernels' launches from nought again: ``launch_counts()``
+    below counts from the last call of this."""
+    _launch_base.update(kernel_counts())
+
+
+def launch_counts():
+    """{kernel: launches} since the last ``zero_counts()``."""
+    return {k: n - _launch_base[k] for k, n in kernel_counts().items()}
 
 
 def add_counts(total, counts):
@@ -1042,7 +1049,7 @@ def phase_serve_buckets(dev, params_np):
     t0 = time.perf_counter()
     outs = [auto.predict(r) for r in requests]
     ms = (time.perf_counter() - t0) * 1e3 / len(requests)
-    counts = kernel_counts()
+    counts = launch_counts()
     for name, n in counts.items():
         require(n > 0, f"AutoBucketEstimator never launched {name}")
     require(list(auto._buckets) == [(H, W)], f"buckets {list(auto._buckets)}")
@@ -1113,7 +1120,7 @@ def phase_serve_batcher(dev, params_np):
         with ThreadPoolExecutor(BATCHER_CLIENTS) as pool:
             answers = list(pool.map(batcher.predict, frames))
         wall = time.perf_counter() - t0
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
         require(len(batches) < BATCHER_REQUESTS,
                 f"{len(batches)} device batches for {BATCHER_REQUESTS} "
                 "requests: nothing coalesced")
@@ -1221,20 +1228,20 @@ def http_checks(dev, params_np, predict, counts):
         require(status == 200 and all(w in metrics for w in want),
                 f"/metrics: {metrics}")
         batched_ms = round_trips(port, posts[:1])
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
     single = HandPoseEstimator(params_np, batch_size=1, input_hw=(H, W),
                                device=dev).warmup()
     with serving(single.predict, {"source": "chip_smoke"},
                  serialize=True) as port:
         zero_counts()
         single_ms = round_trips(port, posts[:1])
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
     # the same server calling predict on each request's own handler thread
     with serving(single.predict, {"source": "chip_smoke"},
                  serialize=False) as port:
         zero_counts()
         handler_ms = round_trips(port, posts[:1])
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
     return {"posts": len(posts), "clients": HTTP_CLIENTS,
             "round_trip_ms_median_batcher": float(np.median(batched_ms)),
             "round_trip_ms_median_batch1": float(np.median(single_ms)),
@@ -1373,7 +1380,7 @@ def phase_bf16(dev, params_np, f32_fps):
         zero_counts()
         per_batch = [cuda_ms(lambda: est.predict(images), 1)
                      for _ in range(TIME_ITERS[b])]
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
         require_exact_f32()
         med = float(np.median(per_batch))
         BF16_FPS[b] = b * 1000.0 / med
@@ -1508,7 +1515,7 @@ def quant_throughput(dev, trees, rng):
             zero_counts()
             per_batch = [cuda_ms(lambda: est.predict(images), 1)
                          for _ in range(QUANT_ITERS[b])]
-            add_counts(counts, kernel_counts())
+            add_counts(counts, launch_counts())
             med = float(np.median(per_batch))
             rows[mode][b] = b * 1000.0 / med
             del est
@@ -1688,7 +1695,7 @@ def phase_quant(dev, params_np, f32_fps, err):
         card, cpu = trees[mode]
         zero_counts()
         got = parity.port_fields(card, image[:n].to(dev), side[:n].to(dev))
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
         ref = parity.port_fields(cpu, image[:n], side[:n])
         cascades[mode] = parity.check_cascade(
             ref, got, parity.port_rerun(cpu, image[:n], side[:n]),
@@ -1714,7 +1721,7 @@ def phase_quant(dev, params_np, f32_fps, err):
                             input_hw=(H, W), quantize="int8", device=dev)
     zero_counts()
     live = est.predict(frames)
-    add_counts(counts, kernel_counts())
+    add_counts(counts, launch_counts())
     with torch.inference_mode():
         want = select_serving_outputs(ColorHandPose3D().inference(
             trees["int8"][0], image.to(dev), side.to(dev),
@@ -1967,8 +1974,7 @@ def timed_call(call, dev):
     """Run ``call(progress=...)`` with the kernel counts set to 0; return
     (ms by CUDA events, metrics, launch counts, host time of each batch's
     drain, peak device memory)."""
-    floodfill.launches = 0
-    decode.launches = 0
+    zero_counts()
     stamps = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1979,8 +1985,7 @@ def timed_call(call, dev):
         time.perf_counter()))
     end.record()
     torch.cuda.synchronize()
-    counts = {"flood_fill": floodfill.launches,
-              "decode_upsampled": decode.launches}
+    counts = launch_counts()
     require_exact_f32()
     return (start.elapsed_time(end), metrics, counts, stamps,
             torch.cuda.max_memory_allocated(dev))
@@ -2601,8 +2606,7 @@ def phase_train(dev):
                      "--eval-freq", str(TRAIN_STEPS // 2),
                      "--eval-batches", "2"] if stage == "posenet" else []
             log_path = os.path.join(tmp, stage.split()[0] + ".jsonl")
-            floodfill.launches = 0
-            decode.launches = 0
+            zero_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
@@ -2611,8 +2615,7 @@ def phase_train(dev):
                                                     log_path])
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
-            counts = {"flood_fill": floodfill.launches,
-                      "decode_upsampled": decode.launches}
+            counts = launch_counts()
             peak = torch.cuda.max_memory_allocated(dev)
             require_exact_f32()
             require(state.step == TRAIN_STEPS, f"{stage}: step {state.step}")
@@ -2757,14 +2760,12 @@ def resident_run(module, argv, log_path):
     """``module.main`` with ``argv``: its final state, the metrics log's
     rows, the windows, the replays of each resident step it made (the steps
     themselves, and their graphs, are let go), its launches."""
-    floodfill.launches = 0
-    decode.launches = 0
+    zero_counts()
     with timed_windows() as (windows, steps):
         state = module.main(argv + ["--metrics-log", log_path])
     torch.cuda.synchronize()
     rows = [json.loads(line) for line in open(log_path)]
-    counts = {"flood_fill": floodfill.launches,
-              "decode_upsampled": decode.launches}
+    counts = launch_counts()
     return state, rows, windows, [s.replays for s in steps], counts
 
 
@@ -3114,7 +3115,7 @@ def phase_weights(dev, params_np):
                              str(WEIGHTS_BATCH), "--no-wrist", "--weights",
                              *files])
             torch.cuda.synchronize()
-            runs[label] = (dists, decodes, kernel_counts())
+            runs[label] = (dists, decodes, launch_counts())
         (p_dists, p_decodes, counts), (n_dists, n_decodes, _) = \
             runs["pickles"], runs["npz"]
         for name, n in counts.items():
@@ -3154,7 +3155,7 @@ def phase_weights(dev, params_np):
         zero_counts()
         state = _common.run(job)
         torch.cuda.synchronize()
-        counts = kernel_counts()
+        counts = launch_counts()
         require(state.step == WEIGHTS_TRAIN_STEPS, f"step {state.step}")
         require(counts["decode_upsampled"] > 0, "the warm-started "
                 "train_posenet's eval never launched the decode kernel")
@@ -3253,7 +3254,7 @@ def mesh_eval(mesh, evalfile, dev):
     with recorded_dists() as rows, contextlib.redirect_stdout(buf):
         zero_counts()
         eval_full.main(argv)
-        counts = kernel_counts()
+        counts = launch_counts()
     lines = [l for l in buf.getvalue().splitlines()
              if l.startswith(("Average", "Area"))]
     return {"lines": lines, "dists": np.concatenate(rows).tolist(),
@@ -3276,7 +3277,7 @@ def mesh_serve(mesh, tmp, rank, dev):
     zero_counts()
     served = est.predict(images)
     sync(dev)
-    counts = kernel_counts()
+    counts = launch_counts()
     lo, per = est.rows
     image = torch.from_numpy(normalize_images(images)[lo:lo + per]).to(dev)
     fields = parity.port_fields(est.params, image, est.hand_side)
@@ -3877,7 +3878,7 @@ def parallel_serve(mesh, tmp, rank, dev, quantize):
     images = mesh_serve_images()
     zero_counts()
     (served, ms) = timed_ms(lambda: est.predict(images), dev)
-    counts = kernel_counts()
+    counts = launch_counts()
     _, ms = timed_ms(lambda: est.predict(images), dev)
     lo, per = est.rows
     image = torch.from_numpy(normalize_images(images)[lo:lo + per]).to(dev)
@@ -4177,7 +4178,7 @@ def pack_throughput(dev, params_np, rng, counts):
                 zero_counts()
                 per_batch[mode] += [cuda_ms(lambda: ests[mode].predict(images),
                                             1) for _ in range(PACK_ITERS[b])]
-                add_counts(counts, kernel_counts())
+                add_counts(counts, launch_counts())
         for mode, ms in per_batch.items():
             fps[mode][b] = b * 1000.0 / float(np.median(ms))
         del ests
@@ -4224,7 +4225,7 @@ def phase_pack(dev, params_np, smi, err):
         base, packed = trees[mode]
         zero_counts()
         got = parity.port_fields(packed, image[:n], side[:n])
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
         cascades[mode] = parity.check_cascade(
             parity.port_fields(base, image[:n], side[:n]), got,
             parity.port_rerun(base, image[:n], side[:n]),
@@ -4249,7 +4250,7 @@ def phase_pack(dev, params_np, smi, err):
     trees_equal(est.params, trees["f32"][1])
     zero_counts()
     live = est.predict(frames)
-    add_counts(counts, kernel_counts())
+    add_counts(counts, launch_counts())
     with torch.inference_mode():
         want = select_serving_outputs(ColorHandPose3D().inference(
             trees["f32"][1], image, side, keypoints_scoremap=False))
@@ -4389,7 +4390,7 @@ def phase_tools(dev, params_np, smi):
             data, wdir, retrained_dir=retrained, batch_size=TOOLS_BATCH,
             progress=False, device=dev)
         line["baseline_drill_s"] = time.perf_counter() - t0
-        add_counts(counts, kernel_counts())
+        add_counts(counts, launch_counts())
         require(sorted(results) == list(range(1, 14)), f"rows {results}")
         for row, r in results.items():
             require(not r["skipped"] and set(r["measured"]) == set(
@@ -4516,7 +4517,7 @@ def phase_orbax(dev, smi):
         "zstd_bytes_out": decoded, "decoder_mb_per_s": rate / 1e6,
         "derived_restore_s_of_full_width_at_decoder_rate":
             full_bytes / rate}
-    line["launches"] = kernel_counts()  # none: no kernel on this path
+    line["launches"] = launch_counts()  # none: no kernel on this path
     line["s"] = time.perf_counter() - t_start
     log(json.dumps(line))
     return line["launches"]
@@ -4687,10 +4688,10 @@ def launches_per_cascade_call(dev):
                            .manual_seed(b)).to(dev) - 0.5
         hand_side = torch.tensor([[1.0, 0.0]], device=dev).repeat(b, 1)
         with torch.inference_mode():
-            before = kernel_counts()
+            before = launch_counts()
             net.inference(params, image, hand_side)
             sync(dev)
-        per_call[b] = {k: n - before[k] for k, n in kernel_counts().items()}
+        per_call[b] = {k: n - before[k] for k, n in launch_counts().items()}
         for name, n in per_call[b].items():
             require(n > 0, f"one cascade call at batch {b} never launched "
                     f"{name}")
@@ -4706,7 +4707,7 @@ def phase_measure(dev, f32_fps):
     measure_memory()
     measure_roofline(profiles)
     launches_per_cascade_call(dev)
-    return kernel_counts()
+    return launch_counts()
 
 
 # --- scaling: the scaling record's rows --------------------------------------

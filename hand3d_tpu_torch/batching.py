@@ -1,21 +1,25 @@
 """The predict() contract shared by the live estimators (``serving``) and a
 loaded export artifact (``export.ExportedEstimator``): input normalization,
 the served outputs and fixed-size chunking. It imports no model code, so an
-artifact is served without it.
+artifact is served without it. Its spans: ``serving.normalize`` and
+``serving.fetch`` (``utils.profiling``).
 """
 
 import numpy as np
+
+from hand3d_tpu_torch.utils import profiling
 
 
 def normalize_images(images):
     """[N,H,W,3] uint8 in [0,255] / float in [0,1] / mean-subtracted float
     -> mean-subtracted float32 (the cascade's input convention)."""
-    images = np.asarray(images)
-    if images.dtype == np.uint8:
-        images = images.astype(np.float32) / 255.0 - 0.5
-    elif images.min() >= 0.0 and images.max() <= 1.0:
-        images = images.astype(np.float32) - 0.5
-    return images.astype(np.float32, copy=False)
+    with profiling.span("serving.normalize"):
+        images = np.asarray(images)
+        if images.dtype == np.uint8:
+            images = images.astype(np.float32) / 255.0 - 0.5
+        elif images.min() >= 0.0 and images.max() <= 1.0:
+            images = images.astype(np.float32) - 0.5
+        return images.astype(np.float32, copy=False)
 
 
 def select_serving_outputs(out):
@@ -32,7 +36,9 @@ def select_serving_outputs(out):
 
 def chunked_predict(run_chunk, images, batch_size):
     """Chunk ``images`` into fixed-size batches (zero-padding the last),
-    launch EVERY chunk before fetching any result, then trim and concatenate.
+    launch EVERY chunk before fetching any result, then trim and concatenate
+    (the span ``serving.fetch``: the wait for the device, the copies out and
+    the concatenation).
 
     CUDA launches are asynchronous, so chunk i's device work overlaps chunk
     i+1's host-side padding and copy; the first device -> host copy waits.
@@ -49,9 +55,10 @@ def chunked_predict(run_chunk, images, batch_size):
             pad = np.zeros((batch_size - valid, *chunk.shape[1:]), chunk.dtype)
             chunk = np.concatenate([chunk, pad])
         pending.append((run_chunk(chunk), valid))
-    outs = [{k: v[:valid].cpu().numpy() for k, v in out.items()}
-            for out, valid in pending]
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    with profiling.span("serving.fetch"):
+        outs = [{k: v[:valid].cpu().numpy() for k, v in out.items()}
+                for out, valid in pending]
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 def check_input(images, input_hw):

@@ -19,12 +19,23 @@ of the two).
 any resolution — resized to the serving bucket on the device — and returns
 JSON: keypoint_uv21 (input-frame pixels), keypoint_coord3d (root-relative,
 bone-normalized), center, scale_crop. `GET /healthz` reports readiness and
-configuration, `GET /metrics` request, error and image counters. Requests
-run one at a time on one device thread, or are coalesced into device
-batches with --dynamic-batch.
+configuration. Requests run one at a time on one device thread, or are
+coalesced into device batches with --dynamic-batch.
+
+`GET /metrics` (Prometheus text) has this server's `hand3d_requests_total`,
+`hand3d_errors_total`, `hand3d_images_total` and `hand3d_request_seconds_sum`
+(the `serve.request` spans of the requests answered 200), then the process's
+span recorder (`utils.profiling`): `hand3d_span_seconds_count{span="..."}`
+and `hand3d_span_seconds_sum{span="..."}` for every span name, and
+`hand3d_counter_total{counter="..."}` for every counter. A request's spans:
+`serve.request` (`do_POST`, whole), `serve.read` (body read and decode),
+`serve.handoff` (from the submit to the device thread's start),
+`serve.predict` (the predict, a child of the request on the device thread)
+and `serve.reply` (JSON encode and write).
 """
 
 import argparse
+import contextvars
 import io
 import json
 import signal
@@ -34,6 +45,8 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from hand3d_tpu_torch.utils import profiling
 
 
 def _decode_body(body, content_type):
@@ -65,9 +78,14 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/metrics":
             s = self.server.stats
             with self.server.stats_lock:
-                lines = "".join(
-                    f"hand3d_{k} {v}\n" for k, v in sorted(s.items()))
-            body = lines.encode("utf-8")
+                lines = [f"hand3d_{k} {v}\n" for k, v in sorted(s.items())]
+            for name, (n, ns) in sorted(profiling.span_totals().items()):
+                lines += [f'hand3d_span_seconds_count{{span="{name}"}} {n}\n',
+                          f'hand3d_span_seconds_sum{{span="{name}"}} '
+                          f'{ns * 1e-9:.6f}\n']
+            lines += [f'hand3d_counter_total{{counter="{name}"}} {n}\n'
+                      for name, n in sorted(profiling.counters().items())]
+            body = "".join(lines).encode("utf-8")
             self.send_response(200)
             self.send_header("Content-Type", "text/plain; version=0.0.4")
             self.send_header("Content-Length", str(len(body)))
@@ -79,35 +97,47 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         if self.path != "/predict":
             return self._json(404, {"error": "unknown path"})
-        t0 = time.perf_counter()
+        with profiling.span("serve.request") as request:
+            answered = self._predict()
+        if answered:
+            with self.server.stats_lock:
+                self.server.stats["request_seconds_sum"] = round(
+                    self.server.stats["request_seconds_sum"]
+                    + (request.end_ns - request.start_ns) * 1e-9, 6)
+
+    def _predict(self):
+        """Read, predict and reply; True where the reply is a 200."""
         try:  # malformed request body -> the client's fault: 400
-            length = int(self.headers.get("Content-Length", 0))
-            images = _decode_body(self.rfile.read(length),
-                                  self.headers.get("Content-Type", ""))
+            with profiling.span("serve.read"):
+                length = int(self.headers.get("Content-Length", 0))
+                images = _decode_body(self.rfile.read(length),
+                                      self.headers.get("Content-Type", ""))
         except Exception as e:
             with self.server.stats_lock:
                 self.server.stats["errors_total"] += 1
-            return self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            self._json(400, {"error": f"{type(e).__name__}: {e}"})
+            return False
         try:  # predict-side failure -> a server fault: 500
             out = self.server.run_predict(images)
             with self.server.stats_lock:
                 self.server.stats["requests_total"] += 1
                 self.server.stats["images_total"] += len(images)
-                self.server.stats["request_seconds_sum"] = round(
-                    self.server.stats["request_seconds_sum"]
-                    + (time.perf_counter() - t0), 6)
-            return self._json(200, {
-                "keypoint_uv21": np.asarray(out["keypoint_uv21"]).tolist(),
-                "keypoint_coord3d":
-                    np.asarray(out["keypoint_coord3d"]).tolist(),
-                "center": np.asarray(out["center"]).tolist(),
-                "scale_crop": np.asarray(out["scale_crop"]).reshape(
-                    len(images)).tolist(),
-            })
+            with profiling.span("serve.reply"):
+                self._json(200, {
+                    "keypoint_uv21":
+                        np.asarray(out["keypoint_uv21"]).tolist(),
+                    "keypoint_coord3d":
+                        np.asarray(out["keypoint_coord3d"]).tolist(),
+                    "center": np.asarray(out["center"]).tolist(),
+                    "scale_crop": np.asarray(out["scale_crop"]).reshape(
+                        len(images)).tolist(),
+                })
+            return True
         except Exception as e:  # surface the cause to the client
             with self.server.stats_lock:
                 self.server.stats["errors_total"] += 1
-            return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            return False
 
     def log_message(self, fmt, *args):  # route through one logger
         print(f"[serve] {self.address_string()} {fmt % args}", flush=True)
@@ -138,11 +168,22 @@ def make_server(predict, meta, host="127.0.0.1", port=8000, serialize=True):
     srv.meta = meta
     srv.device_thread = (ThreadPoolExecutor(1, "device") if serialize
                          else None)
-    if serialize:
-        srv.run_predict = lambda images: srv.device_thread.submit(
-            predict, images).result()
-    else:
-        srv.run_predict = predict
+
+    def traced_predict(images):
+        with profiling.span("serve.predict"):
+            return predict(images)
+
+    def on_device(submitted, images):
+        profiling.record("serve.handoff", submitted, time.perf_counter_ns())
+        return traced_predict(images)
+
+    def handed_over(images):
+        # the request's context goes along, and with it its span ids
+        ctx = contextvars.copy_context()
+        return srv.device_thread.submit(
+            ctx.run, on_device, time.perf_counter_ns(), images).result()
+
+    srv.run_predict = handed_over if serialize else traced_predict
     srv.stats = {"requests_total": 0, "errors_total": 0, "images_total": 0,
                  "request_seconds_sum": 0.0}
     srv.stats_lock = threading.Lock()

@@ -36,6 +36,7 @@ from hand3d_tpu_torch.data.preprocess import (draw_noise, preprocess_rhd,
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.train.draws import Rows
+from hand3d_tpu_torch.utils import profiling
 
 # first word of the pipeline's generators, apart from the train step's
 DATA_STREAM = 0
@@ -156,6 +157,13 @@ class InputPipeline:
         self._preprocess = (preprocess_rhd if isinstance(dataset, RHDDataset)
                             else preprocess_stb)
 
+    def _to_device(self, raw, epoch, step):
+        """A host batch copied to the device and emitted."""
+        with profiling.span("data.preprocess"):
+            raw = {k: v.to(self.device, non_blocking=True)
+                   for k, v in raw.items()}
+            return self._emit(raw, epoch, step)
+
     def _emit(self, raw, epoch, step):
         if self.yield_raw:
             return raw
@@ -234,16 +242,15 @@ class InputPipeline:
         threading.Thread(target=producer, daemon=True).start()
         try:
             while True:
-                item = q.get()
+                with profiling.span("data.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, _ProducerError):
                     raise RuntimeError("input-pipeline producer thread "
                                        "failed") from item.exc
                 epoch, step, raw = item
-                raw = {k: v.to(self.device, non_blocking=True)
-                       for k, v in raw.items()}
-                yield self._emit(raw, epoch, step)
+                yield self._to_device(raw, epoch, step)
         finally:
             stop.set()
             # drain, so a producer blocked in q.put sees the stop flag
@@ -266,15 +273,14 @@ class InputPipeline:
             reader.reset(-1 if epochs is None else epochs)
             total = 0
             while True:
-                item = reader.next_batch()
+                with profiling.span("data.wait"):
+                    item = reader.next_batch()
                 if item is None:
                     return
                 raw = host_tensors(self.dataset.raw_from_records(item[0]),
                                    self.device)
-                raw = {k: v.to(self.device, non_blocking=True)
-                       for k, v in raw.items()}
                 epoch, step = divmod(total, spe)
                 total += 1
-                yield self._emit(raw, epoch, step)
+                yield self._to_device(raw, epoch, step)
         finally:
             reader.close()

@@ -14,8 +14,7 @@ import functools
 import torch
 
 from hand3d_tpu_torch.ops.kernels import build
-
-launches = 0  # kernel launches made by decode_upsampled_cuda
+from hand3d_tpu_torch.utils import profiling
 
 
 @functools.cache
@@ -57,7 +56,6 @@ def decode_upsampled_cuda(scoremap, factor):
       [B, K, 2] float32 (row, col) in the upsampled grid, bit-equal to
       ``decode_upsampled_torch``; ties go to the smallest row-major index.
     """
-    global launches
     if not scoremap.is_cuda:
         raise ValueError("decode_upsampled_cuda needs a CUDA tensor")
     if scoremap.dtype != torch.float32 or scoremap.ndim != 4:
@@ -85,7 +83,7 @@ def decode_upsampled_cuda(scoremap, factor):
             None if scratch is None else scratch.data_ptr(),
             b, h, w, k, factor, build.current_stream(scoremap.device))
     build.check(err, lib, "decode kernel")
-    launches += 1
+    profiling.count("kernels.decode_upsampled.launches")
     return out
 
 

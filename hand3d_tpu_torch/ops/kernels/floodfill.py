@@ -15,8 +15,7 @@ import functools
 import torch
 
 from hand3d_tpu_torch.ops.kernels import build
-
-launches = 0  # kernel launches made by flood_fill_cuda
+from hand3d_tpu_torch.utils import profiling
 
 
 @functools.cache
@@ -65,7 +64,6 @@ def flood_fill_cuda(detmap, seed_rc, num_passes):
     Returns:
       [B, H, W] float32 object map, bit-equal to ``flood_fill_torch``.
     """
-    global launches
     if not (detmap.is_cuda and seed_rc.device == detmap.device):
         raise ValueError("flood_fill_cuda needs both tensors on one CUDA device")
     if detmap.dtype != torch.float32 or seed_rc.dtype != torch.int32:
@@ -90,7 +88,7 @@ def flood_fill_cuda(detmap, seed_rc, num_passes):
                                  out.data_ptr(), b, h, w, num_passes,
                                  build.current_stream(detmap.device))
     build.check(err, lib, "flood fill kernel")
-    launches += 1
+    profiling.count("kernels.flood_fill.launches")
     return out
 
 

@@ -7,6 +7,13 @@ resolution (resized to a bucket on the estimator's device, uv and center
 mapped back); ``DynamicBatcher`` coalesces concurrent requests into one
 device batch.
 
+Spans (``utils.profiling``): ``serving.h2d`` (a chunk's copy in) and
+``serving.launch`` (the cascade's launches, the served outputs' selection
+and a mesh's gather) in ``HandPoseEstimator``, with ``batching``'s
+``serving.normalize`` and ``serving.fetch``; ``batcher.queue_wait`` (a
+request's wait from its put to its collection) and the counters
+``batcher.batches`` and ``batcher.images`` in ``DynamicBatcher``.
+
 Example:
     est = HandPoseEstimator.from_npz("weights.npz", batch_size=32,
                                      device="cuda")
@@ -29,6 +36,7 @@ from hand3d_tpu_torch.batching import (check_input, chunked_predict,
                                        select_serving_outputs)
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
+from hand3d_tpu_torch.utils import profiling
 from hand3d_tpu_torch.weights import load_npz, params_from_jax
 
 __all__ = ["AutoBucketEstimator", "DeviceParams", "DynamicBatcher",
@@ -211,8 +219,9 @@ class HandPoseEstimator:
 
     def _run(self, chunk):
         lo, per = self.rows
-        image = torch.from_numpy(chunk[lo:lo + per]).to(self.device)
-        with torch.inference_mode():
+        with profiling.span("serving.h2d"):
+            image = torch.from_numpy(chunk[lo:lo + per]).to(self.device)
+        with profiling.span("serving.launch"), torch.inference_mode():
             out = select_serving_outputs(self.net.inference(
                 self.params, image, self.hand_side, keypoints_scoremap=False))
             if self.mesh is not None:
@@ -420,8 +429,11 @@ class DynamicBatcher:
         with self._lock:
             if self._stop:
                 raise RuntimeError("DynamicBatcher is closed")
+            put = time.perf_counter_ns()
             self._q.put((images, fut))
-        return fut.result()
+        out = fut.result()
+        profiling.record("batcher.queue_wait", put, fut.collected_ns)
+        return out
 
     def _collect(self, first):
         """Coalesce requests: same-(H,W) items totalling at most max_batch
@@ -480,6 +492,12 @@ class DynamicBatcher:
                     draining = True
                     continue
                 items = self._collect(first)
+                collected = time.perf_counter_ns()
+                for _, fut in items:
+                    fut.collected_ns = collected
+                profiling.count("batcher.batches")
+                profiling.count("batcher.images",
+                                sum(im.shape[0] for im, _ in items))
                 try:
                     batch = np.concatenate([im for im, _ in items])
                     out = self.est.predict(batch, normalized=True)

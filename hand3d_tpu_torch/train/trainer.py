@@ -23,6 +23,9 @@ rows of the global batch, and the step is the one a single process takes on
 that global batch, up to float reassociation (``DataParallelGrads``). On a
 mesh with a "model" axis the state is first sharded (``shard_state``) and
 gathered whole again for a snapshot (``gather_state``).
+
+A step of :func:`make_train_step` is the span ``train.step``
+(``utils.profiling``); the core a resident step captures holds no span.
 """
 
 import functools
@@ -41,6 +44,7 @@ from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.train import draws, losses
 from hand3d_tpu_torch.train.draws import STEP_STREAM  # noqa: F401
 from hand3d_tpu_torch.train.schedule import piecewise_constant
+from hand3d_tpu_torch.utils import profiling
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # tf.train.AdamOptimizer's defaults
 WARMUP_STEPS = 2  # eager steps on a throwaway state before a capture
@@ -456,19 +460,22 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1,
         grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
 
         def dp_step(state, batch, key):
-            loss, grads = grads_of(state.params, batch, key)
-            optimizer.apply(state.opt_state, state.params, grads, state.step)
-            return state._replace(step=state.step + 1), {"loss": loss}
+            with profiling.span("train.step"):
+                loss, grads = grads_of(state.params, batch, key)
+                optimizer.apply(state.opt_state, state.params, grads,
+                                state.step)
+                return state._replace(step=state.step + 1), {"loss": loss}
 
         return dp_step
     core = _make_step_core(loss_fn, optimizer, remat, accum_steps)
 
     def step(state, batch, key):
-        sources = [draws.step_generator(key, j, accum_steps)
-                   for j in range(accum_steps)]
-        loss, _ = core(state.params, state.opt_state, batch, sources,
-                       state.step)
-        return state._replace(step=state.step + 1), {"loss": loss}
+        with profiling.span("train.step"):
+            sources = [draws.step_generator(key, j, accum_steps)
+                       for j in range(accum_steps)]
+            loss, _ = core(state.params, state.opt_state, batch, sources,
+                           state.step)
+            return state._replace(step=state.step + 1), {"loss": loss}
 
     return step
 

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from hand3d_tpu_torch.ops import keypoints, segmentation
-from hand3d_tpu_torch.ops.kernels import build, decode, floodfill
+from hand3d_tpu_torch.ops.kernels import (build, decode, floodfill,
+                                          kernel_counts)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -30,14 +31,14 @@ def cuda():
 
 
 def test_wrappers_reject_cpu_tensors():
-    counts = floodfill.launches, decode.launches
+    counts = kernel_counts()
     det = torch.zeros((1, 8, 8))
     seed = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         floodfill.flood_fill_cuda(det, seed, 1)
     with pytest.raises(ValueError, match="CUDA"):
         decode.decode_upsampled_cuda(torch.zeros((1, 4, 4, 2)), 2)
-    assert (floodfill.launches, decode.launches) == counts
+    assert kernel_counts() == counts
 
 
 def test_compile_kernel_raises_on_nvcc_failure(tmp_path, monkeypatch):
@@ -380,12 +381,12 @@ def test_registered_op_passes_opcheck_on_the_cpu(op):
 
 def test_registered_ops_take_the_twins_on_the_cpu():
     det, seed, sm = _op_inputs("cpu")
-    counts = floodfill.launches, decode.launches
+    counts = kernel_counts()
     assert torch.equal(torch.ops.hand3d.flood_fill(det, seed, 4),
                        segmentation.flood_fill_torch(det, seed, 4))
     assert torch.equal(torch.ops.hand3d.decode_upsampled(sm, 4),
                        keypoints.decode_upsampled_torch(sm, 4))
-    assert (floodfill.launches, decode.launches) == counts  # no kernel ran
+    assert kernel_counts() == counts  # no kernel ran
 
 
 def test_registered_ops_have_fake_shapes():
@@ -410,11 +411,10 @@ def test_registered_ops_launch_the_kernels_on_the_card(cuda, b):
     det_t = torch.from_numpy(det).to(cuda)
     seed_t = torch.from_numpy(seed).to(cuda)
     sm_t = torch.from_numpy(_decode_specials((b, 32, 32, 21), rng)).to(cuda)
-    before = floodfill.launches, decode.launches
+    before = kernel_counts()
     fill = torch.ops.hand3d.flood_fill(det_t, seed_t, 32)
     dec = torch.ops.hand3d.decode_upsampled(sm_t, 8)
-    assert (floodfill.launches, decode.launches) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert kernel_counts() == {k: n + 1 for k, n in before.items()}
     torch.cuda.synchronize()
     assert torch.equal(fill, floodfill.flood_fill_cuda(det_t, seed_t, 32))
     assert torch.equal(fill, segmentation.flood_fill_torch(det_t, seed_t, 32))
