@@ -150,14 +150,20 @@ class Planned:
         self.pos = pos
 
 
-def record(loss_fn, params, microbatches):
+def record(loss_fn, params, microbatches, source=None):
     """The draw calls of one step, per microbatch: ``loss_fn`` run forward
-    (no gradients) on each microbatch with a recording source."""
+    (no gradients) on each microbatch with a recording source.
+
+    ``source(j, recorder)``, where given, is the source microbatch j draws
+    from (a ``Rows`` over the recorder notes a rank's draws at the global
+    batch's shapes); a microbatch given as None draws nothing."""
     calls = []
     with torch.no_grad():
-        for micro in microbatches:
+        for j, micro in enumerate(microbatches):
             rec = Recorder(torch.Generator().manual_seed(0))
-            loss_fn(params, micro, rec)
+            if micro is not None:
+                loss_fn(params, micro,
+                        rec if source is None else source(j, rec))
             calls.append(rec.calls)
     return calls
 
@@ -177,13 +183,18 @@ class DrawPlan:
         self.width = off
 
     def fill(self, out, seed, steps):
-        """Write the draws of ``steps`` (absolute step numbers) into the rows
-        of ``out`` [len(steps), width], each from its own generators, by the
+        """Write the draws of ``steps`` (absolute step numbers, keys (seed,
+        i)) into the rows of ``out`` [len(steps), width]."""
+        self.fill_keys(out, [(seed, i) for i in steps])
+
+    def fill_keys(self, out, keys):
+        """Write the draws of the steps named ``keys`` into the rows of
+        ``out`` [len(keys), width], each from its own generators, by the
         calls the per-step path makes."""
         accum = len(self.micro_calls)
-        for r, i in enumerate(steps):
+        for r, key in enumerate(keys):
             for j, calls in enumerate(self.micro_calls):
-                gen = step_generator((seed, i), j, accum)
+                gen = step_generator(key, j, accum)
                 off = self.spans[j][0]
                 for call in calls:
                     value = call.fn(gen, *call.args)

@@ -24,8 +24,16 @@ that global batch, up to float reassociation (``DataParallelGrads``). On a
 mesh with a "model" axis the state is first sharded (``shard_state``) and
 gathered whole again for a snapshot (``gather_state``).
 
+The data-parallel step is a CUDA graph where it can be one: params on a
+CUDA device, NCCL ranks and no "model" axis (``DataParallelStep``). Each
+call then replays one captured step, collectives included, with the draws
+of its key planned on the host as the resident step plans them. Gloo ranks
+(several on one card), the CPU and tensor-parallel meshes take the eager
+step, as does a batch of other shapes than the first.
+
 A step of :func:`make_train_step` is the span ``train.step``
-(``utils.profiling``); the core a resident step captures holds no span.
+(``utils.profiling``), around the whole call, replay included; the core a
+resident step captures holds no span.
 """
 
 import functools
@@ -33,6 +41,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
@@ -183,9 +192,14 @@ class ScheduledAdam:
             torch._foreach_mul_(update, neg_step_size)
             torch._foreach_add_(leaves, update)
         if step is not None:
-            for group in opt.param_groups:
-                group["lr"] = self.schedule(step)
+            self.label(opt, step)
         return lr
+
+    def label(self, opt, step):
+        """Set the param group's ``lr`` (what the state_dict shows) to the
+        schedule's at the host's count ``step``."""
+        for group in opt.param_groups:
+            group["lr"] = self.schedule(step)
 
 
 def make_optimizer(lr_values, lr_steps):
@@ -449,24 +463,15 @@ def make_train_step(loss_fn, optimizer, remat=False, accum_steps=1,
     batch's visibility count, so there it is the mean of microbatch losses.
 
     ``mesh`` (``parallel.make_mesh`` or ``make_multislice_mesh``): the
-    data-parallel step. ``batch`` is this rank's rows of the global batch
-    (``InputPipeline`` shards it), and the gradients and loss are the
-    global batch's (``DataParallelGrads``); every rank then applies the same
-    update. With a "model" axis the state must be sharded
-    (:func:`shard_state`): sharded params keep sharded gradients and Adam
-    moments.
+    data-parallel step (:class:`DataParallelStep`). ``batch`` is this rank's
+    rows of the global batch (``InputPipeline`` shards it), and the
+    gradients and loss are the global batch's (``DataParallelGrads``); every
+    rank then applies the same update. With a "model" axis the state must be
+    sharded (:func:`shard_state`): sharded params keep sharded gradients and
+    Adam moments.
     """
     if mesh is not None:
-        grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
-
-        def dp_step(state, batch, key):
-            with profiling.span("train.step"):
-                loss, grads = grads_of(state.params, batch, key)
-                optimizer.apply(state.opt_state, state.params, grads,
-                                state.step)
-                return state._replace(step=state.step + 1), {"loss": loss}
-
-        return dp_step
+        return DataParallelStep(loss_fn, optimizer, mesh, remat, accum_steps)
     core = _make_step_core(loss_fn, optimizer, remat, accum_steps)
 
     def step(state, batch, key):
@@ -530,7 +535,10 @@ class DataParallelGrads:
             self.recorded = share.recorded
         return self.recorded
 
-    def __call__(self, params, batch, key):
+    def _parts(self, batch):
+        """(lo, m, parts): this rank's first row of the global batch, the
+        global microbatch's rows, and for each microbatch j the global rows
+        ``[a, b)`` of it that this rank holds (none where ``b <= a``)."""
         a_steps = self.accum_steps
         n = next(iter(batch.values())).shape[0]
         total = n * mesh_lib.batch_shard_count(self.mesh)
@@ -539,17 +547,37 @@ class DataParallelGrads:
             raise ValueError(f"batch axis {total} not divisible by "
                              f"accum_steps {a_steps}")
         m = total // a_steps
+        return lo, m, [(max(lo, j * m), min(lo + n, (j + 1) * m))
+                       for j in range(a_steps)]
+
+    def draw_calls(self, params, batch):
+        """The draws of each global microbatch of a step (``draws.record``,
+        at the global microbatch's shapes); none for a microbatch this rank
+        holds no row of."""
+        lo, m, parts = self._parts(batch)
+        micro = [{k: v[a - lo:b - lo] for k, v in batch.items()}
+                 if b > a else None for a, b in parts]
+        return draws.record(
+            self.loss_fn, params, micro,
+            lambda j, rec: draws.Rows(rec, m, parts[j][0] - j * m,
+                                      parts[j][1] - parts[j][0]))
+
+    def __call__(self, params, batch, key, sources=None):
+        """``sources``: each global microbatch's draw source (a planned
+        one, ``draws.Planned``); by default the generators of ``key``."""
+        a_steps = self.accum_steps
+        lo, m, parts = self._parts(batch)
         device = next(iter(batch.values())).device
         loss_sum, grad_sum = None, None
-        for j in range(a_steps):
-            a, b = max(lo, j * m), min(lo + n, (j + 1) * m)
+        for j, (a, b) in enumerate(parts):
             share = losses.BatchShare(self.group, b - a, m)
             if b <= a:
                 share.join(self._record(params, batch), device)
                 continue
             micro = {k: v[a - lo:b - lo] for k, v in batch.items()}
-            source = draws.Rows(draws.step_generator(key, j, a_steps), m,
-                                a - j * m, b - a)
+            whole = (draws.step_generator(key, j, a_steps) if sources is None
+                     else sources[j])
+            source = draws.Rows(whole, m, a - j * m, b - a)
 
             def shared(p, x, generator):
                 share.rewind()  # a recomputed forward reuses the sums
@@ -575,6 +603,141 @@ class DataParallelGrads:
             return loss_sum, grad_sum
         inv = 1.0 / a_steps
         return loss_sum * inv, [g * inv for g in grad_sum]
+
+
+def _signature(batch):
+    return {k: (tuple(v.shape), v.dtype, v.device) for k, v in batch.items()}
+
+
+class DataParallelStep:
+    """What ``make_train_step(mesh=)`` returns: ``step(state, batch, key)``.
+
+    Where the params lie on a CUDA device, the batch group's backend is
+    NCCL and the mesh's "model" axis is 1, the step is one captured CUDA
+    graph that each call replays: the fused preprocess and its draws,
+    forward, backward, the normalizers' all-reduces, the gradients' flat
+    all-reduce and the Adam update. The first call records the step's draws
+    (``DataParallelGrads.draw_calls``), warms the step up on a throwaway
+    copy of the state on a side stream and captures one step over the real
+    state, every rank the same collectives in the same order. Before each
+    replay the host makes the step's draws from its ``key``, with the calls
+    the generator path makes (``draws.DrawPlan.fill_keys``), and sends them
+    in one non-blocking copy; the batch is copied into the graph's inputs.
+    The values are the generator path's, bit for bit. Each call returns a
+    loss tensor of its own. A state whose tensors are not those of the
+    first call raises ValueError; a batch of other shapes or dtypes than the
+    first runs the eager step. ``train.step_graph.replays`` and
+    ``train.step_graph.eager`` (``utils.profiling``) count the two.
+
+    Gloo ranks, the CPU and a mesh with a "model" axis (tensor parallelism)
+    run the eager step, ``DataParallelGrads`` and the Adam update as they
+    come. On the CPU ``load`` and ``run`` drive the graph's body eagerly.
+    """
+
+    def __init__(self, loss_fn, optimizer, mesh, remat=False, accum_steps=1):
+        self.grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
+        self.optimizer = optimizer
+        self.nccl = (mesh_lib.model_size(mesh) == 1
+                     and dist.get_backend(self.grads_of.group) == "nccl")
+        self.graph = None
+        self.bound = None  # the state tensors the step was built over
+
+    def __call__(self, state, batch, key):
+        with profiling.span("train.step"):
+            if self.nccl and tree_leaves(state.params)[0].is_cuda:
+                if self.bound is None or self.fits(batch):
+                    self.load(state, batch, key)
+                    loss = self.run(state)
+                    return state._replace(step=state.step + 1), {"loss": loss}
+                self._check(state)
+                profiling.count("train.step_graph.eager")
+            loss, grads = self.grads_of(state.params, batch, key)
+            self.optimizer.apply(state.opt_state, state.params, grads,
+                                 state.step)
+            return state._replace(step=state.step + 1), {"loss": loss}
+
+    def _tensors(self, state):
+        opt = state.opt_state
+        leaves = tree_leaves(state.params)
+        return leaves + [t for p in leaves for t in opt.state[p].values()]
+
+    def _check(self, state):
+        if any(a is not b for a, b in zip(self._tensors(state), self.bound)):
+            raise ValueError("a data-parallel graph step is bound to the "
+                             "state of its first call")
+
+    def fits(self, batch):
+        """Whether ``batch`` has the shapes and dtypes the step was built
+        for."""
+        return _signature(batch) == self.signature
+
+    def _build(self, state, batch):
+        self.signature = _signature(batch)
+        self.device = tree_leaves(state.params)[0].device
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.plan = draws.DrawPlan(self.grads_of.draw_calls(state.params,
+                                                            batch))
+        self.window = draws.Windows(1, self.plan.width, self.device)
+        self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.optimizer.prepare(state.opt_state, tree_leaves(state.params))
+        self.bound = self._tensors(state)
+
+    def load(self, state, batch, key):
+        """The host's half of a step: the batch copied into the step's
+        inputs, the draws of ``key`` made and sent (the step is built at
+        the first call)."""
+        if self.bound is None:
+            self._build(state, batch)
+        self._check(state)
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        self.window.send(lambda host: self.plan.fill_keys(host, [key]), 1)
+
+    def body(self, params, opt):
+        """One step over the loaded inputs and draws, reading and writing
+        only device tensors."""
+        loss, grads = self.grads_of(params, self.inputs, None,
+                                    self.plan.sources(self.window.dev[0]))
+        self.optimizer.apply(opt, params, grads)
+        self.loss.copy_(loss)
+
+    def _capture(self, state):
+        """Warm-up on a throwaway copy of the state, then capture one step
+        over the real one. The input pipeline's thread and NCCL's watchdog
+        may call CUDA meanwhile: only this thread is held to the capture's
+        rules."""
+        throw = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                         state.params)
+        throw_opt = self.optimizer.init(throw)
+        for p, q in zip(tree_leaves(state.params), tree_leaves(throw)):
+            throw_opt.state[q] = {k: v.clone() for k, v in
+                                  state.opt_state.state[p].items()}
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self.body(throw, throw_opt)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del throw, throw_opt
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.body(state.params, state.opt_state)
+        self.graph = graph
+
+    def run(self, state):
+        """The device's half: the loaded step (on CUDA a replay, after the
+        capture at the first call); returns its loss. The update's LR comes
+        from the state's step counter; ``state.step`` labels the param
+        group's ``lr``."""
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self._capture(state)
+            self.graph.replay()
+            profiling.count("train.step_graph.replays")
+        else:
+            self.body(state.params, state.opt_state)
+        self.optimizer.label(state.opt_state, state.step)
+        return self.loss.clone()
 
 
 def make_resident_train_step(loss_fn, optimizer, remat=False, accum_steps=1):

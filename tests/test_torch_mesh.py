@@ -4,7 +4,8 @@ Two gloo ranks (``tests/torch_mesh_worker.py``, spawned once for the module,
 importing torch and the port only) run every multi-rank check in one go:
 DP train steps of PoseNet, HandSegNet and lifting and PoseNet with
 ``accum_steps=2``; the eval2d_gt_cropped and eval_full harnesses; the
-estimator; and train_posenet's fit with a SIGTERM sent to one rank. While
+estimator; train_posenet's fit with a SIGTERM sent to one rank; and the
+data-parallel graph step's body against the generator path. While
 they run, this process computes the references: JAX's step on a 2x1 mesh of
 two of conftest's virtual CPU devices, JAX's harnesses, and the port in one
 process. Tolerances:
@@ -165,6 +166,8 @@ def _spec(d):
         "fit": {"rhd": str(make_rhd_bin(d / "train.bin", num_records=8,
                                         seed=5)),
                 "dir": str(d / "fit")},
+        "graph_body": {"rhd": str(d / "train.bin"), "batch": BATCH,
+                       "params": stages["posenet"]["params"]},
     }
 
 
@@ -495,6 +498,30 @@ def test_sigterm_on_one_rank_stops_every_rank_at_one_step(ranks):
     steps = [json.loads(l)["step"] for l in
              open(os.path.join(ranks.spec["fit"]["dir"], "m.jsonl"))]
     assert collections.Counter(steps) == {0: 1, 1: 1, 2: 1}
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_dp_graph_body_equals_the_generator_path_bitwise(ranks, accum):
+    """The body of the data-parallel graph step, driven eagerly with its
+    static inputs and planned draws, gives the generator path's losses,
+    params and Adam moments bit for bit after three steps on each rank
+    (with accum 2 each rank skips the microbatch it holds no row of, and
+    joins its normalizer's all-reduce); the ranks agree."""
+    got = [r["graph_body"][accum] for r in ranks.results()]
+    for g in got:
+        assert g["draws"] > 0
+        assert g["graph"] == g["generator"]
+        assert g["digest"]["graph"] == g["digest"]["generator"]
+    assert got[0]["graph"] == got[1]["graph"]
+    assert got[0]["digest"] == got[1]["digest"]
+
+
+def test_dp_step_on_gloo_ranks_replays_nothing(ranks):
+    """make_train_step(mesh=) on gloo ranks on the CPU takes the eager
+    step: neither graph counter moves."""
+    for r in ranks.results():
+        assert r["graph_body"]["counters"] == {
+            "train.step_graph.replays": 0, "train.step_graph.eager": 0}
 
 
 def test_mesh_of_other_sizes_raises():

@@ -7,8 +7,9 @@ Run by tests/test_torch_mesh.py, one process per rank:
 It imports torch and the port only (no jax), joins a gloo group at
 127.0.0.1:PORT, builds the 2x1 mesh and runs every check of INPUTS.pkl (a
 pickle of numpy trees written by the test), then writes what it saw to
-OUT_DIR/rank<RANK>.pkl. The test holds those results to JAX and to a single
-process.
+OUT_DIR/rank<RANK>.pkl. The test holds those results to JAX, to a single
+process and, for the data-parallel graph step's body, to the generator
+path.
 """
 
 import hashlib
@@ -22,6 +23,8 @@ import torch
 
 from hand3d_tpu_torch import parity, weights
 from hand3d_tpu_torch.cli import train_handsegnet, train_lifting, train_posenet
+from hand3d_tpu_torch.data.config import PreprocessConfig
+from hand3d_tpu_torch.data.preprocess import preprocess_rhd
 from hand3d_tpu_torch.data.rhd import RHDDataset
 from hand3d_tpu_torch.data.stb import STBDataset
 from hand3d_tpu_torch.eval import harnesses
@@ -29,6 +32,7 @@ from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.serving import HandPoseEstimator
 from hand3d_tpu_torch.train import checkpoints, trainer
 from hand3d_tpu_torch.train.loop import fit
+from hand3d_tpu_torch.utils import profiling
 
 TIMEOUT_S = 120
 
@@ -89,6 +93,76 @@ def train_stage(spec, mesh, rank):
                     "digest": (digest(grads), digest(params))})
         if rank == 0:
             out[-1].update(grads=grads, params=params)
+    return out
+
+
+GRAPH_STEPS = 3
+GRAPH_COUNTERS = ("train.step_graph.replays", "train.step_graph.eager")
+
+
+def state_digest(state):
+    """Digests of the params and of the Adam moments, in leaf order."""
+    leaves = trainer.tree_leaves(state.params)
+    moments = [state.opt_state.state[p][k] for p in leaves
+               for k in ("exp_avg", "exp_avg_sq")]
+    return tuple(digest({str(i): t.detach().numpy()
+                         for i, t in enumerate(ts)})
+                 for ts in (leaves, moments))
+
+
+def graph_body(spec, mesh):
+    """The data-parallel graph step's body driven eagerly on the CPU
+    (``DataParallelStep.load`` and ``run``: the batch copied into the
+    step's inputs, the draws planned on the host, ``Rows(Planned)`` in the
+    step) against the generator path (``DataParallelGrads``, then Adam),
+    GRAPH_STEPS steps of PoseNet's fused loss from the same params, for
+    accum_steps 1 and 2; then ``make_train_step(mesh=)`` on these gloo
+    ranks, with the graph counters before and after."""
+    cfg = PreprocessConfig(use_wrist_coord=False, hand_crop=True,
+                           coord_uv_noise=True, crop_center_noise=True,
+                           crop_offset_noise=True, crop_scale_noise=True,
+                           crop_size=32)
+    loss_fn = trainer.fuse_preprocess(train_posenet.loss_fn, preprocess_rhd,
+                                      cfg)
+    dataset = RHDDataset("training", spec["rhd"])
+    params = weights.params_from_jax(spec["params"], "cpu")
+    lo, per = mesh_lib.shard_rows(mesh, spec["batch"])
+
+    def batch(i):
+        idx = (np.arange(spec["batch"]) + i) % len(dataset)
+        return rows(dataset.raw_batch(idx), lo, per)
+
+    out = {}
+    for accum in (1, 2):
+        opt = trainer.make_optimizer([1e-4], [])
+        graphed = trainer.init_state(params, opt)
+        plain = trainer.init_state(params, opt)
+        step = trainer.DataParallelStep(loss_fn, opt, mesh,
+                                        accum_steps=accum)
+        grads_of = trainer.DataParallelGrads(loss_fn, mesh,
+                                             accum_steps=accum)
+        got = {"graph": [], "generator": []}
+        for i in range(GRAPH_STEPS):
+            step.load(graphed, batch(i), (0, i))
+            got["graph"].append(step.run(graphed).item())
+            graphed = graphed._replace(step=graphed.step + 1)
+            loss, grads = grads_of(plain.params, batch(i), (0, i))
+            opt.apply(plain.opt_state, plain.params, grads, plain.step)
+            plain = plain._replace(step=plain.step + 1)
+            got["generator"].append(loss.item())
+        got["digest"] = {"graph": state_digest(graphed),
+                         "generator": state_digest(plain)}
+        got["draws"] = step.plan.width
+        out[accum] = got
+    opt = trainer.make_optimizer([1e-4], [])
+    state = trainer.init_state(params, opt)
+    before = profiling.counters()
+    step = trainer.make_train_step(loss_fn, opt, mesh=mesh)
+    for i in range(2):
+        state, _ = step(state, batch(i), (0, i))
+    after = profiling.counters()
+    out["counters"] = {k: after.get(k, 0) - before.get(k, 0)
+                       for k in GRAPH_COUNTERS}
     return out
 
 
@@ -187,7 +261,8 @@ def main():
                       for name, s in spec["stages"].items()},
            "eval": evals(spec["eval"], mesh),
            "serve": serve(spec["serve"], mesh),
-           "fit": preempted_fit(spec["fit"], rank)}
+           "fit": preempted_fit(spec["fit"], rank),
+           "graph_body": graph_body(spec["graph_body"], mesh)}
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
