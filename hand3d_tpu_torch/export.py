@@ -21,7 +21,9 @@ own call only, as the live estimator does. With ``phase_pack=True`` the
 phase-packed conv1_2 layers and their fused pools are traced in. The
 program maps f32[B, H, W, 3] to the dict of
 ``serving.HandPoseEstimator.predict``; shapes are static, one artifact per
-(batch, height, width) bucket.
+(batch, height, width) bucket. The program's input stays normalized
+float32: ``ExportedEstimator`` normalizes uint8 frames on the device before
+the program (``batching.to_device_normalized``), float frames on the host.
 
 A loading host needs torch, numpy and the port's kernel ops (built from
 ``csrc/`` by nvcc at first use on a card): ``ExportedEstimator`` imports no
@@ -39,8 +41,8 @@ import torch
 
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.batching import (check_input, chunked_predict,
-                                       normalize_images,
-                                       select_serving_outputs)
+                                       predict_input, select_serving_outputs,
+                                       to_device_normalized, uint8_levels)
 
 _MAGIC = b"H3DX"
 ARTIFACT_VERSION = 1
@@ -144,6 +146,7 @@ class ExportedEstimator:
         self.compute_dtype = self.meta["compute_dtype"]
         self.batch_size = self.meta["batch_size"]
         self.input_hw = tuple(self.meta["input_hw"])
+        self.levels = uint8_levels(self.device)
         program = torch.export.load(io.BytesIO(blob[off + hlen:]))
         self._fwd = program.module()
 
@@ -160,22 +163,22 @@ class ExportedEstimator:
         scope = (precision.tf32_convs(self.device)
                  if self.compute_dtype == "bfloat16"
                  else contextlib.nullcontext())
-        image = torch.from_numpy(chunk).to(self.device)
+        image = to_device_normalized(chunk, self.levels)
         with torch.inference_mode(), scope:
             return self._fwd(image)
 
     def warmup(self):
-        """Run one batch ahead of traffic (kernel build, cuDNN set-up)."""
+        """Run one batch of uint8 frames ahead of traffic (kernel build,
+        cuDNN set-up, the normalize on the device)."""
         self.predict(np.zeros((self.batch_size, *self.input_hw, 3),
-                              np.float32), normalized=True)
+                              np.uint8))
         return self
 
     def predict(self, images, *, normalized=False):
         """Same contract as serving.HandPoseEstimator.predict: [N,H,W,3]
-        uint8 / [0,1] float / mean-subtracted float in, dict of numpy out."""
-        images = np.asarray(images) if normalized else normalize_images(
-            images)
+        uint8 / [0,1] float / mean-subtracted float in, dict of numpy out.
+        uint8 frames are normalized on the device, chunk by chunk; float
+        frames on the host."""
+        images = predict_input(images, normalized)
         check_input(images, self.input_hw)
-        return chunked_predict(self._run,
-                               images.astype(np.float32, copy=False),
-                               self.batch_size)
+        return chunked_predict(self._run, images, self.batch_size)

@@ -7,7 +7,14 @@ resolution (resized to a bucket on the estimator's device, uv and center
 mapped back); ``DynamicBatcher`` coalesces concurrent requests into one
 device batch.
 
-Spans (``utils.profiling``): ``serving.h2d`` (a chunk's copy in) and
+uint8 frames reach ``HandPoseEstimator`` as uint8 and each chunk is
+normalized on the device (``batching.to_device_normalized``); float frames,
+frames that ``SnapEstimator`` or ``AutoBucketEstimator`` resize, and
+``DynamicBatcher``'s requests are normalized on the host
+(``normalize_images``).
+
+Spans (``utils.profiling``): ``serving.h2d`` (a chunk's copy in, and a
+uint8 chunk's normalize on the device) and
 ``serving.launch`` (the cascade's launches, the served outputs' selection
 and a mesh's gather) in ``HandPoseEstimator``, with ``batching``'s
 ``serving.normalize`` and ``serving.fetch``; ``batcher.queue_wait`` (a
@@ -32,8 +39,9 @@ import torch.nn.functional as F
 
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.batching import (check_input, chunked_predict,
-                                       normalize_images,
-                                       select_serving_outputs)
+                                       normalize_images, predict_input,
+                                       select_serving_outputs,
+                                       to_device_normalized, uint8_levels)
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.utils import profiling
@@ -212,6 +220,7 @@ class HandPoseEstimator:
         self.input_hw = tuple(input_hw)
         self.hand_side = hand_side_tensor(left_hand, self.rows[1],
                                           self.device)
+        self.levels = uint8_levels(self.device)
 
     @classmethod
     def from_npz(cls, path, **kwargs):
@@ -220,7 +229,7 @@ class HandPoseEstimator:
     def _run(self, chunk):
         lo, per = self.rows
         with profiling.span("serving.h2d"):
-            image = torch.from_numpy(chunk[lo:lo + per]).to(self.device)
+            image = to_device_normalized(chunk[lo:lo + per], self.levels)
         with profiling.span("serving.launch"), torch.inference_mode():
             out = select_serving_outputs(self.net.inference(
                 self.params, image, self.hand_side, keypoints_scoremap=False))
@@ -229,20 +238,22 @@ class HandPoseEstimator:
         return out
 
     def warmup(self):
-        """Run one batch ahead of traffic (kernel build, cuDNN set-up)."""
+        """Run one batch of uint8 frames ahead of traffic (kernel build,
+        cuDNN set-up, the normalize on the device)."""
         self.predict(np.zeros((self.batch_size, *self.input_hw, 3),
-                              np.float32), normalized=True)
+                              np.uint8))
         return self
 
     def predict(self, images, *, normalized=False):
         """images: [N, H, W, 3], uint8 in [0,255] or float in [0,1] or
         mean-subtracted float. Returns a dict of numpy arrays with leading N.
+        uint8 frames travel to the device as uint8 and are normalized there,
+        chunk by chunk; float frames are normalized on the host first.
         ``normalized=True`` says the caller already ran normalize_images (the
         [0, 1]-range rule must run only once)."""
-        images = np.asarray(images) if normalized else normalize_images(images)
+        images = predict_input(images, normalized)
         check_input(images, self.input_hw)
-        return chunked_predict(self._run, images.astype(np.float32, copy=False),
-                               self.batch_size)
+        return chunked_predict(self._run, images, self.batch_size)
 
 
 def _resize_to(images, target_hw, device="cpu"):
@@ -273,15 +284,20 @@ def _map_back(out, hw, target_hw):
     return out
 
 
-def _snapped_predict(est, target, images, device):
-    """``est.predict`` on ``images`` (normalized) resized to ``target``,
-    with uv and center mapped back and ``snap_hw`` added."""
+def _snapped_predict(est, target, images, normalized, device):
+    """``est.predict`` on ``images`` resized to ``target``, with uv and
+    center mapped back and ``snap_hw`` added. Frames already at ``target``
+    go to ``est.predict`` as they came (uint8 is normalized on the device);
+    frames to resize are normalized on the host first, and resized in
+    float."""
     hw = tuple(images.shape[1:3])
-    if target != hw:
-        images = _resize_to(images, target, device)
-    out = est.predict(images, normalized=True)
-    if target != hw:
-        out = _map_back(out, hw, target)
+    if target == hw:
+        out = est.predict(images, normalized=normalized)
+    else:
+        if not normalized:
+            images = normalize_images(images)
+        out = _map_back(est.predict(_resize_to(images, target, device),
+                                    normalized=True), hw, target)
     out["snap_hw"] = np.asarray(target, np.int32)
     return out
 
@@ -291,7 +307,9 @@ class SnapEstimator:
     ``export.ExportedEstimator``, whose program is baked at one (H, W)):
     any-resolution inputs are resized to its bucket on its device and
     keypoint_uv21/center mapped back to the caller's frame — the same
-    contract AutoBucketEstimator provides for live weights."""
+    contract AutoBucketEstimator provides for live weights. Frames it
+    resizes are normalized on the host first; frames already at the bucket
+    go to the estimator as they came."""
 
     def __init__(self, estimator):
         self.est = estimator
@@ -300,9 +318,8 @@ class SnapEstimator:
         self.device = getattr(estimator, "device", torch.device("cpu"))
 
     def predict(self, images, *, normalized=False):
-        images = np.asarray(images) if normalized else normalize_images(
-            images)
-        return _snapped_predict(self.est, self.input_hw, images, self.device)
+        return _snapped_predict(self.est, self.input_hw, np.asarray(images),
+                                normalized, self.device)
 
 
 class AutoBucketEstimator:
@@ -315,7 +332,9 @@ class AutoBucketEstimator:
     device to the nearest configured bucket — keypoint_uv21 and center are
     then mapped back to the caller's frame. hand_scoremap and scale_crop
     remain in the bucket's frame (a scalar crop scale cannot survive an
-    anisotropic resize); the ``snap_hw`` output records that frame.
+    anisotropic resize); the ``snap_hw`` output records that frame. Frames
+    it resizes are normalized on the host first; frames already at their
+    bucket go to it as they came.
 
     All other constructor kwargs pass through to HandPoseEstimator (``mesh``
     among them: every bucket then spreads its batches over the ranks); the
@@ -374,11 +393,10 @@ class AutoBucketEstimator:
 
     def predict(self, images, *, normalized=False):
         """Same contract as HandPoseEstimator.predict, any resolution."""
-        images = np.asarray(images) if normalized else normalize_images(
-            images)
+        images = np.asarray(images)
         target = self._snap(tuple(images.shape[1:3]))
         return _snapped_predict(self._bucket(target), target, images,
-                                self.device)
+                                normalized, self.device)
 
 
 class DynamicBatcher:
@@ -423,7 +441,8 @@ class DynamicBatcher:
 
     def predict(self, images):
         """Same contract as the wrapped estimator; thread-safe. Raises
-        RuntimeError after close()."""
+        RuntimeError after close(). Each request is normalized on the host,
+        here, before the batcher thread coalesces it."""
         images = normalize_images(images)
         fut = Future()
         with self._lock:

@@ -78,6 +78,24 @@ def test_round_trip_equals_the_live_estimator(params, artifact):
         est.predict(frames(1, 40, 64, seed=0))
 
 
+@pytest.mark.parametrize("kind", ["live", "artifact", "snap"])
+def test_uint8_frames_equal_frames_normalized_on_the_host(params, artifact,
+                                                           kind):
+    """predict on uint8 frames, normalized on the device chunk by chunk with
+    the last chunk zero-padded in uint8, serves what predict on the same
+    frames normalized on the host serves, bit for bit: the live estimator,
+    the loaded artifact, and SnapEstimator, which passes frames already at
+    its bucket through as they came."""
+    live = serving.HandPoseEstimator(params, batch_size=2, input_hw=HW,
+                                     device="cpu")
+    est = (export.ExportedEstimator.load(artifact) if kind == "artifact"
+           else serving.SnapEstimator(live) if kind == "snap" else live)
+    images = frames(3, *HW, seed=5)
+    assert_equal_outputs(
+        est.predict(images),
+        est.predict(serving.normalize_images(images), normalized=True))
+
+
 def test_artifact_holds_both_kernels_as_registered_ops(params):
     """torch.export of the cascade on the CPU; both kernels are graph ops."""
     module = export._Cascade(
