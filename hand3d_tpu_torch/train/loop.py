@@ -365,9 +365,11 @@ def _run_loop(state, step_fn, it, seed, start_step, max_iter, loop):
         loop.progress["iter"] = i
         batch = next(it)
         state, metrics = step_fn(state, batch, (seed, i))
-        # a step counts once its loss is real; fetching the PREVIOUS step's
-        # keeps one step in flight, so the host prepares step i + 1 while
-        # the device runs step i
+        # a step counts once its loss is real. Reading the PREVIOUS step's
+        # waits for that step alone where the step returns a
+        # ``trainer.StepLoss`` (the data-parallel CUDA graph): step i stays
+        # queued while the host prepares step i + 1. A device tensor's read
+        # syncs its stream, and so waits for step i too
         if pending_loss is not None:
             float(pending_loss)
             loop.beat()

@@ -27,9 +27,12 @@ gathered whole again for a snapshot (``gather_state``).
 The data-parallel step is a CUDA graph where it can be one: params on a
 CUDA device, NCCL ranks and no "model" axis (``DataParallelStep``). Each
 call then replays one captured step, collectives included, with the draws
-of its key planned on the host as the resident step plans them. Gloo ranks
-(several on one card), the CPU and tensor-parallel meshes take the eager
-step, as does a batch of other shapes than the first.
+of its key planned on the host as the resident step plans them, and
+returns its loss as a ``StepLoss``: a copy to pinned host memory under an
+event, so that reading one step's loss waits for that step alone and the
+step launched after it stays queued on the card. Gloo ranks (several on
+one card), the CPU and tensor-parallel meshes take the eager step, as does
+a batch of other shapes than the first; they return device tensors.
 
 A step of :func:`make_train_step` is the span ``train.step``
 (``utils.profiling``), around the whole call, replay included; the core a
@@ -609,6 +612,43 @@ def _signature(batch):
     return {k: (tuple(v.shape), v.dtype, v.device) for k, v in batch.items()}
 
 
+class StepLoss:
+    """A step's scalar loss on its way to the host, read with ``float()`` or
+    ``.item()``.
+
+    Made right after the step is queued: the loss is copied, non-blocking
+    and on the current stream, into a pinned host slot of its own, and an
+    event is recorded after the copy. A read waits for that event alone,
+    not for the stream, so work queued after the step keeps running. The
+    source tensor may be overwritten afterwards (a graph's static loss, by
+    the next replay); the reading keeps the value it was made from. On the
+    CPU the copy is synchronous and there is no event.
+    """
+
+    __slots__ = ("value", "event")
+
+    def __init__(self, loss):
+        self.value = torch.empty((), dtype=loss.dtype,
+                                 pin_memory=loss.is_cuda)
+        self.value.copy_(loss, non_blocking=True)
+        self.event = None
+        if loss.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(loss.device))
+
+    def done(self):
+        """Whether the value has reached the host (never waits)."""
+        return self.event is None or self.event.query()
+
+    def item(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.value.item()
+
+    def __float__(self):
+        return self.item()
+
+
 class DataParallelStep:
     """What ``make_train_step(mesh=)`` returns: ``step(state, batch, key)``.
 
@@ -623,15 +663,21 @@ class DataParallelStep:
     replay the host makes the step's draws from its ``key``, with the calls
     the generator path makes (``draws.DrawPlan.fill_keys``), and sends them
     in one non-blocking copy; the batch is copied into the graph's inputs.
-    The values are the generator path's, bit for bit. Each call returns a
-    loss tensor of its own. A state whose tensors are not those of the
-    first call raises ValueError; a batch of other shapes or dtypes than the
-    first runs the eager step. ``train.step_graph.replays`` and
-    ``train.step_graph.eager`` (``utils.profiling``) count the two.
+    The values are the generator path's, bit for bit. A replay's call
+    returns its loss as a :class:`StepLoss` of its own, whose read waits for
+    that step only: a loop that reads step n - 1's loss after launching step
+    n keeps step n queued while the host prepares step n + 1. A state whose
+    tensors are not those of the first call raises ValueError; a batch of
+    other shapes or dtypes than the first runs the eager step.
+    ``train.step_graph.replays`` and ``train.step_graph.eager``
+    (``utils.profiling``) count the two; ``train.step_graph.in_flight``
+    counts the replays launched while the previous replay's loss had not
+    yet reached the host, that is behind a step the card was still running.
 
     Gloo ranks, the CPU and a mesh with a "model" axis (tensor parallelism)
     run the eager step, ``DataParallelGrads`` and the Adam update as they
-    come. On the CPU ``load`` and ``run`` drive the graph's body eagerly.
+    come, and return the loss as a device tensor. On the CPU ``load`` and
+    ``run`` drive the graph's body eagerly.
     """
 
     def __init__(self, loss_fn, optimizer, mesh, remat=False, accum_steps=1):
@@ -641,6 +687,7 @@ class DataParallelStep:
                      and dist.get_backend(self.grads_of.group) == "nccl")
         self.graph = None
         self.bound = None  # the state tensors the step was built over
+        self.last = None  # the previous replay's StepLoss
 
     def __call__(self, state, batch, key):
         with profiling.span("train.step"):
@@ -723,21 +770,26 @@ class DataParallelStep:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.body(state.params, state.opt_state)
         self.graph = graph
+        profiling.count("train.step_graph.in_flight", 0)
 
     def run(self, state):
         """The device's half: the loaded step (on CUDA a replay, after the
-        capture at the first call); returns its loss. The update's LR comes
-        from the state's step counter; ``state.step`` labels the param
-        group's ``lr``."""
+        capture at the first call); returns its loss, on CUDA as a
+        :class:`StepLoss`. The update's LR comes from the state's step
+        counter; ``state.step`` labels the param group's ``lr``."""
         if self.device.type == "cuda":
             if self.graph is None:
                 self._capture(state)
+            if self.last is not None and not self.last.done():
+                profiling.count("train.step_graph.in_flight")
             self.graph.replay()
             profiling.count("train.step_graph.replays")
+            self.last = loss = StepLoss(self.loss)
         else:
             self.body(state.params, state.opt_state)
+            loss = self.loss.clone()
         self.optimizer.label(state.opt_state, state.step)
-        return self.loss.clone()
+        return loss
 
 
 def make_resident_train_step(loss_fn, optimizer, remat=False, accum_steps=1):

@@ -3,12 +3,14 @@
 On the card (marked ``gpu``; they skip without one): one NCCL rank on a 1x1
 mesh, in a process of its own (``tests/torch_dp_graph_worker.py``), holds
 graphed steps to eager ones bit for bit under deterministic algorithms,
-counts the replays, refuses a state that is not the captured one, runs a
-batch of other shapes eagerly, and captures one step of each train CLI's
-loss (PoseNet's also with the preprocess in the input pipeline, a step
-that draws nothing). On the CPU: the step's binding to the state of its
-first call and its eager path on a gloo mesh of one rank. Imports torch
-and the port only (no jax), so the card's tests run with
+counts the replays, reads its losses one step behind (``StepLoss``) and
+counts the replays that queued behind a running step, refuses a state that
+is not the captured one, runs a batch of other shapes eagerly, and
+captures one step of each train CLI's loss (PoseNet's also with the
+preprocess in the input pipeline, a step that draws nothing). On the CPU:
+the step's binding to the state of its first call, its eager path on a
+gloo mesh of one rank, and what a ``StepLoss`` reading returns. Imports
+torch and the port only (no jax), so the card's tests run with
 ``--noconftest``.
 """
 
@@ -37,6 +39,7 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "torch_dp_graph_worker.py")
 REPO = os.path.dirname(os.path.dirname(WORKER))
 WORKER_TIMEOUT_S = 900
+BEHIND_STEPS = 6  # the worker's
 CLIS = ["posenet", "posenet_unfused", "handsegnet", "lifting", "joint"]
 
 
@@ -72,6 +75,30 @@ def test_graphed_steps_equal_eager_steps_bitwise(card):
     assert got["equal"], "params or Adam moments differ"
     assert got["counters"] == {"train.step_graph.replays": 4,
                                "train.step_graph.eager": 0}
+
+
+@pytest.mark.gpu
+def test_losses_read_one_step_behind_equal_eager_losses_bitwise(card):
+    got = card["behind"]
+    assert got["kinds"] == ["StepLoss"]
+    assert len(got["graph"]) == BEHIND_STEPS
+    assert got["first_reads"] == got["graph"]  # kept readings hold
+    assert got["graph"] == got["eager"]
+    assert got["equal"], "params or Adam moments differ"
+    assert got["counters"] == {"train.step_graph.replays": BEHIND_STEPS,
+                               "train.step_graph.eager": 0}
+
+
+@pytest.mark.gpu
+def test_replays_behind_a_running_step_count_as_in_flight(card):
+    # every replay after the first was launched before the previous
+    # step's loss was read
+    assert card["behind"]["in_flight"] == BEHIND_STEPS - 1
+
+
+@pytest.mark.gpu
+def test_a_loss_read_at_once_leaves_nothing_in_flight(card):
+    assert card["steps"]["in_flight"] == 0
 
 
 @pytest.mark.gpu
@@ -146,3 +173,18 @@ def test_dp_step_on_a_gloo_mesh_is_eager(cpu_job):
     after = profiling.counters()
     assert all(after.get(k, 0) == before.get(k, 0) for k in (
         "train.step_graph.replays", "train.step_graph.eager"))
+
+
+def test_a_step_loss_reading_returns_its_own_value():
+    src = torch.tensor(1.5)
+    first = trainer.StepLoss(src)
+    src.fill_(float("inf"))  # the next step overwrites its static loss
+    later = [trainer.StepLoss(src) for _ in range(3)]
+    assert first.done()
+    assert float(first) == 1.5 and first.item() == 1.5
+    assert isinstance(first.item(), float)
+    assert np.isfinite(float(first))
+    assert not np.isfinite(float(later[-1]))
+    assert float(first) == 1.5  # kept, and read again after later ones
+    small = torch.tensor(0.1)  # an f32 value read as the tensor reads it
+    assert float(trainer.StepLoss(small)) == small.item()

@@ -26,6 +26,7 @@ from hand3d_tpu_torch.utils import profiling
 
 BATCH = 4
 GRAPHED_STEPS = 4
+BEHIND_STEPS = 6  # graphed steps whose losses are read one step behind
 CLIS = {"posenet": (train_posenet, []),
         # the preprocess in the input pipeline: a step that draws nothing
         "posenet_unfused": (train_posenet, ["--no-fused"]),
@@ -33,6 +34,7 @@ CLIS = {"posenet": (train_posenet, []),
         "lifting": (train_lifting, ["--variant", "proposed"]),
         "joint": (train_joint, ["--variant", "proposed"])}
 COUNTERS = ("train.step_graph.replays", "train.step_graph.eager")
+IN_FLIGHT = "train.step_graph.in_flight"
 
 
 def setup(name, data, tmp):
@@ -63,11 +65,18 @@ class Counted:
 
     def __init__(self):
         self.last = profiling.counters()
+        self.flights = self.last.get(IN_FLIGHT, 0)
 
     def take(self):
         now = profiling.counters()
         out = {k: now.get(k, 0) - self.last.get(k, 0) for k in COUNTERS}
         self.last = now
+        return out
+
+    def in_flight(self):
+        """``train.step_graph.in_flight``'s growth since the last call."""
+        now = profiling.counters().get(IN_FLIGHT, 0)
+        out, self.flights = now - self.flights, now
         return out
 
 
@@ -102,6 +111,7 @@ def steps_check(data, tmp):
         out["eager"].append(me["loss"].item())
     out["equal"] = equal(g, e)
     out["counters"] = counted.take()
+    out["in_flight"] = counted.in_flight()  # each loss was read at once
     try:
         step(trainer.init_state(job.params, job.optimizer), feed[0], (0, 9))
         out["replaced"] = None
@@ -118,6 +128,33 @@ def steps_check(data, tmp):
     out["after_half"] = {"graph": mg["loss"].item(),
                          "eager": me["loss"].item(), "equal": equal(g, e),
                          "counters": counted.take()}
+    return out
+
+
+def behind_check(data, tmp):
+    """BEHIND_STEPS graphed steps, each loss read after the next step is
+    launched (as ``loop._run_loop`` reads it), against as many eager steps;
+    every reading is kept and read again at the end."""
+    job = setup("posenet", data, tmp)
+    step, eager, g, e = pair(job)
+    feed = batches(job, BEHIND_STEPS)
+    counted = Counted()
+    readings, first_reads, pending = [], [], None
+    for i in range(BEHIND_STEPS):
+        g, mg = step(g, feed[i], (0, i))
+        if pending is not None:
+            first_reads.append(float(pending))
+        pending = mg["loss"]
+        readings.append(pending)
+    first_reads.append(float(pending))
+    out = {"counters": counted.take(), "in_flight": counted.in_flight(),
+           "kinds": sorted({type(r).__name__ for r in readings}),
+           "first_reads": first_reads,
+           "graph": [float(r) for r in readings], "eager": []}
+    for i in range(BEHIND_STEPS):
+        e, me = eager(e, feed[i], (0, i))
+        out["eager"].append(me["loss"].item())
+    out["equal"] = equal(g, e)
     return out
 
 
@@ -139,7 +176,8 @@ def main():
     mesh_lib.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
     out = {"device": torch.cuda.get_device_name(0),
            "backend": torch.distributed.get_backend(),
-           "steps": steps_check(data, out_dir)}
+           "steps": steps_check(data, out_dir),
+           "behind": behind_check(data, out_dir)}
     out["clis"] = {name: cli_check(name, data, out_dir) for name in CLIS}
     with open(os.path.join(out_dir, "result.pkl"), "wb") as f:
         pickle.dump(out, f)
