@@ -295,6 +295,7 @@ from hand3d_tpu_torch.tools.card import nvidia_smi
 from hand3d_tpu_torch.tools.scaling_record import (counted_collectives,
                                                    run_processes)
 from hand3d_tpu_torch.train import checkpoints, losses, loop, trainer
+from hand3d_tpu_torch.utils import profiling
 from hand3d_tpu_torch.weights import ocdbt, tf_ckpt, zstd
 
 CPU = torch.device("cpu")
@@ -2717,30 +2718,40 @@ def train_resume_child(tmp, data, *extra):
         "cuDNN, cuBLAS and torch algorithms, in a child process)")
 
 
+def resident_replays():
+    """The counter ``train.resident_step.replays`` since the process
+    began: replays of every resident step's CUDA graph."""
+    return profiling.counters().get("train.resident_step.replays", 0)
+
+
 @contextlib.contextmanager
 def timed_windows():
     """CUDA events around every window that ``train.loop.fit``'s resident
-    step runs (start, end, steps), and the steps it made (their replays)."""
-    windows, steps = [], []
+    step runs (start, end, steps), and the replays of each step it made
+    (the counter's growth over that step's windows)."""
+    windows, replays = [], []
     base = loop.make_resident_train_step
 
     def make(*args, **kw):
         step = base(*args, **kw)
-        steps.append(step)
+        made = len(replays)
+        replays.append(0)
 
         def timed(state, data, idx, *rest):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            before = resident_replays()
             start.record()
             out = step(state, data, idx, *rest)
             end.record()
+            replays[made] += resident_replays() - before
             windows.append((start, end, len(idx)))
             return out
         return timed
 
     loop.make_resident_train_step = make
     try:
-        yield windows, steps
+        yield windows, replays
     finally:
         loop.make_resident_train_step = base
 
@@ -2761,12 +2772,12 @@ def resident_run(module, argv, log_path):
     rows, the windows, the replays of each resident step it made (the steps
     themselves, and their graphs, are let go), its launches."""
     zero_counts()
-    with timed_windows() as (windows, steps):
+    with timed_windows() as (windows, replays):
         state = module.main(argv + ["--metrics-log", log_path])
     torch.cuda.synchronize()
     rows = [json.loads(line) for line in open(log_path)]
     counts = launch_counts()
-    return state, rows, windows, [s.replays for s in steps], counts
+    return state, rows, windows, replays, counts
 
 
 def warm_resident(module, argv, dev, remat=False):
@@ -2789,10 +2800,11 @@ def warm_resident(module, argv, dev, remat=False):
 def profile_resident_window(module, argv, dev):
     """torch.profiler over one resident window of RESIDENT_K PoseNet steps,
     after the capture and one more window."""
+    before = resident_replays()
     step, state, data, idx = warm_resident(module, argv, dev)
     out = profiled(lambda: step(state, data, idx, 0, 2 * RESIDENT_K)[1]
                    .cpu(), RESIDENT_K, require_busy=False)
-    out["replays"] = step.replays
+    out["replays"] = resident_replays() - before
     return out
 
 
@@ -2805,6 +2817,7 @@ def resident_remat_runs(module, argv, dev):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        before = resident_replays()
         step, state, data, idx = warm_resident(module, argv, dev, remat)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2812,12 +2825,13 @@ def resident_remat_runs(module, argv, dev):
         step(state, data, idx, 0, 2 * RESIDENT_K)[1].cpu()
         end.record()
         torch.cuda.synchronize()
+        replays = resident_replays() - before
         out[str(remat)] = {
             "ms_per_step": start.elapsed_time(end) / RESIDENT_K,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-            "replays": step.replays}
-        require(step.replays == 3 * RESIDENT_K,
-                f"--remat {remat}: {step.replays} replays")
+            "replays": replays}
+        require(replays == 3 * RESIDENT_K,
+                f"--remat {remat}: {replays} replays")
         del step, state, data
     return out
 

@@ -13,10 +13,13 @@ non-negative integers (the loop passes (seed, step)): the same key gives the
 same draws on the card and on the CPU. The resident step takes the same
 values from a plan made ahead on the host (``train/draws.py``).
 
-Both steps share one core (``_make_step_core``, as in the JAX package): the
-gradients, the accumulation and the Adam update mean one thing on both. The
-update reads its LR and bias corrections from the step counter in the Adam
-state, on the params' device, so a CUDA graph can replay it.
+The one-card and resident steps share one core (``_make_step_core``, as in
+the JAX package); it and ``DataParallelGrads`` share the microbatch sum
+(``_sum_microbatches``, ``_mean``). Every step updates with
+``ScheduledAdam.apply``, which reads its LR and bias corrections from the
+step counter in the Adam state, on the params' device, so a CUDA graph can
+replay it. The two graphed steps share ``_GraphStep``: the tensors a graph
+is bound to, its warm-up and capture, and its counted replays.
 
 ``make_train_step(mesh=)`` is the data-parallel step: each rank is fed its
 rows of the global batch, and the step is the one a single process takes on
@@ -40,6 +43,7 @@ resident step captures holds no span.
 """
 
 import functools
+import itertools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -231,17 +235,10 @@ def shard_state(mesh, state):
     local = mesh_lib.shard_params(mesh, tree_map(
         lambda t: t.detach().clone(), state.params))
     local = tree_map(lambda t: t.requires_grad_(True), local)
-    opt = state.opt_state
-    sharded = torch.optim.Adam(tree_leaves(local), **_adam_args(opt))
-    for (whole, part), slot in zip(
-            zip(tree_leaves(state.params), tree_leaves(local)),
-            _leaf_shards(local)):
-        moments = opt.state.get(whole)
-        if moments:
-            sharded.state[part] = {
-                k: (v if k == "step" else _block(v, slot)).clone()
-                for k, v in moments.items()}
-    return TrainState(local, sharded, state.step)
+    return _state_over(
+        state, local,
+        lambda k, v, slot: (v if k == "step" else _block(v, slot)).clone(),
+        _leaf_shards(local))
 
 
 def gather_state(mesh, state):
@@ -254,25 +251,29 @@ def gather_state(mesh, state):
 
     whole = tree_map(lambda t: t.requires_grad_(True),
                      mesh_lib.gather_params(mesh, state.params))
+    return _state_over(
+        state, whole,
+        lambda k, v, slot: (v.clone() if k == "step" or slot is None else
+                            collectives.all_gather(v, slot[0].group, slot[1])),
+        _leaf_shards(state.params))
+
+
+def _state_over(state, params, moment, slots=None):
+    """A TrainState over ``params``, whose leaves stand one for one for those
+    of ``state.params``: an Adam with ``state``'s LR, betas and eps, and each
+    leaf's moments ``moment(name, tensor, slot)`` of the old leaf's, ``slot``
+    its entry of ``slots`` (:func:`_leaf_shards`; None if not given)."""
     opt = state.opt_state
-    full = torch.optim.Adam(tree_leaves(whole), **_adam_args(opt))
-    for (part, new), slot in zip(
-            zip(tree_leaves(state.params), tree_leaves(whole)),
-            _leaf_shards(state.params)):
-        moments = opt.state.get(part)
-        if moments:
-            full.state[new] = {
-                k: (v.clone() if k == "step" or slot is None else
-                    collectives.all_gather(v, slot[0].group, slot[1]))
-                for k, v in moments.items()}
-    for group in full.param_groups:
-        group["lr"] = opt.param_groups[0]["lr"]
-    return TrainState(whole, full, state.step)
-
-
-def _adam_args(opt):
     group = opt.param_groups[0]
-    return {"lr": group["lr"], "betas": group["betas"], "eps": group["eps"]}
+    new = torch.optim.Adam(tree_leaves(params), lr=group["lr"],
+                           betas=group["betas"], eps=group["eps"])
+    pairs = zip(tree_leaves(state.params), tree_leaves(params))
+    for (old, leaf), slot in zip(pairs, slots or itertools.repeat(None)):
+        moments = opt.state.get(old)
+        if moments:
+            new.state[leaf] = {k: moment(k, v, slot)
+                               for k, v in moments.items()}
+    return TrainState(params, new, state.step)
 
 
 def _leaf_shards(tree):
@@ -411,38 +412,56 @@ def value_and_grad(loss_fn, params, batch, generator, remat=False):
 # --- the steps ---------------------------------------------------------------
 
 
+def _check_step_args(remat, accum_steps):
+    remat_saves(remat)  # an unknown policy raises here, not at step 0
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps {accum_steps} < 1")
+
+
+def _sum_microbatches(accum_steps, grads_of):
+    """The sum of ``grads_of(j) -> (loss, grads)`` over the microbatches j in
+    turn; a microbatch for which it returns None adds nothing."""
+    loss_sum, grad_sum = None, None
+    for j in range(accum_steps):
+        got = grads_of(j)
+        if got is None:
+            continue
+        loss, grads = got
+        if grad_sum is None:
+            loss_sum, grad_sum = loss, list(grads)
+        else:
+            loss_sum = loss_sum + loss
+            grad_sum = [a + g for a, g in zip(grad_sum, grads)]
+    return loss_sum, grad_sum
+
+
+def _mean(loss, grads, accum_steps):
+    if accum_steps == 1:
+        return loss, grads
+    inv = 1.0 / accum_steps
+    return loss * inv, [g * inv for g in grads]
+
+
 def _make_step_core(loss_fn, optimizer, remat=False, accum_steps=1):
     """``core(params, opt, batch, sources, step) -> (loss, lr)``: the
     gradients of ``loss_fn`` (source j draws for microbatch j) and one
     update, which returns the LR it took; shared by :func:`make_train_step`
     and :func:`make_resident_train_step`."""
-    remat_saves(remat)  # an unknown policy raises here, not at step 0
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps {accum_steps} < 1")
+    _check_step_args(remat, accum_steps)
 
-    def grads_of(params, batch, sources):
-        if accum_steps == 1:
-            return value_and_grad(loss_fn, params, batch, sources[0], remat)
+    def core(params, opt, batch, sources, step):
         n = next(iter(batch.values())).shape[0]
         if n % accum_steps:
             raise ValueError(f"batch axis {n} not divisible by accum_steps "
                              f"{accum_steps}")
         m = n // accum_steps
-        loss_sum, grad_sum = None, None
-        for j in range(accum_steps):
-            micro = {k: v[j * m:(j + 1) * m] for k, v in batch.items()}
-            loss, grads = value_and_grad(loss_fn, params, micro, sources[j],
-                                         remat)
-            if grad_sum is None:
-                loss_sum, grad_sum = loss, list(grads)
-            else:
-                loss_sum = loss_sum + loss
-                grad_sum = [a + g for a, g in zip(grad_sum, grads)]
-        inv = 1.0 / accum_steps
-        return loss_sum * inv, [g * inv for g in grad_sum]
 
-    def core(params, opt, batch, sources, step):
-        loss, grads = grads_of(params, batch, sources)
+        def grads_of(j):
+            micro = {k: v[j * m:(j + 1) * m] for k, v in batch.items()}
+            return value_and_grad(loss_fn, params, micro, sources[j], remat)
+
+        loss, grads = _mean(*_sum_microbatches(accum_steps, grads_of),
+                            accum_steps)
         return loss, optimizer.apply(opt, params, grads, step)
 
     return core
@@ -519,9 +538,7 @@ class DataParallelGrads:
     """
 
     def __init__(self, loss_fn, mesh, remat=False, accum_steps=1):
-        remat_saves(remat)
-        if accum_steps < 1:
-            raise ValueError(f"accum_steps {accum_steps} < 1")
+        _check_step_args(remat, accum_steps)
         self.loss_fn = loss_fn
         self.mesh = mesh
         self.remat = remat
@@ -571,12 +588,13 @@ class DataParallelGrads:
         a_steps = self.accum_steps
         lo, m, parts = self._parts(batch)
         device = next(iter(batch.values())).device
-        loss_sum, grad_sum = None, None
-        for j, (a, b) in enumerate(parts):
+
+        def grads_of(j):
+            a, b = parts[j]
             share = losses.BatchShare(self.group, b - a, m)
             if b <= a:
                 share.join(self._record(params, batch), device)
-                continue
+                return None
             micro = {k: v[a - lo:b - lo] for k, v in batch.items()}
             whole = (draws.step_generator(key, j, a_steps) if sources is None
                      else sources[j])
@@ -587,13 +605,10 @@ class DataParallelGrads:
                 return self.loss_fn(p, x, generator)
 
             with losses.batch_share(share):
-                loss, grads = value_and_grad(shared, params, micro, source,
-                                             self.remat)
-            if grad_sum is None:
-                loss_sum, grad_sum = loss, list(grads)
-            else:
-                loss_sum = loss_sum + loss
-                grad_sum = [x + g for x, g in zip(grad_sum, grads)]
+                return value_and_grad(shared, params, micro, source,
+                                      self.remat)
+
+        loss_sum, grad_sum = _sum_microbatches(a_steps, grads_of)
         *grad_sum, loss_sum = mesh_lib.sum_flat(
             [*grad_sum, loss_sum.reshape(1).to(grad_sum[0].dtype)],
             self.mesh)
@@ -602,10 +617,7 @@ class DataParallelGrads:
             mesh_lib.agree_over_model(
                 [g for g, slot in zip(grad_sum, _leaf_shards(params))
                  if slot is None], self.mesh)
-        if a_steps == 1:
-            return loss_sum, grad_sum
-        inv = 1.0 / a_steps
-        return loss_sum * inv, [g * inv for g in grad_sum]
+        return _mean(loss_sum, grad_sum, a_steps)
 
 
 def _signature(batch):
@@ -649,7 +661,57 @@ class StepLoss:
         return self.item()
 
 
-class DataParallelStep:
+class _GraphStep:
+    """What the two graphed steps share: the tensors a step is bound to, the
+    warm-up and capture of one step (over the subclass's ``device``), and
+    its replays, counted under the subclass's ``REPLAYS``."""
+
+    graph = None
+    bound = None  # the tensors the step was built over
+
+    def _bind(self, state, data=None):
+        """Bind the step to the tensors of ``state`` (and ``data``) at its
+        first call, Adam's state made first; ValueError for others later."""
+        leaves = tree_leaves(state.params)
+        if self.bound is None:
+            self.optimizer.prepare(state.opt_state, leaves)
+        moments = state.opt_state.state
+        tensors = [*leaves, *(data or {}).values(),
+                   *(t for p in leaves for t in moments[p].values())]
+        if self.bound is None:
+            self.bound = tensors
+        elif any(a is not b for a, b in zip(tensors, self.bound)):
+            what = "state" if data is None else "state and data"
+            raise ValueError(f"a {type(self).__name__} is bound to the "
+                             f"{what} of its first call")
+
+    def _capture(self, state, body):
+        """Warm ``body(params, opt)`` up on a throwaway copy of ``state`` on
+        a side stream, then capture one body over ``state``, holding only
+        this thread to the capture's rules: the input pipeline's thread and
+        NCCL's watchdog may call CUDA meanwhile (the mode sets which threads
+        are checked, not what is captured)."""
+        throw = _state_over(state, tree_map(
+            lambda t: t.detach().clone().requires_grad_(True), state.params),
+            lambda k, v, slot: v.clone())
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                body(throw.params, throw.opt_state)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del throw
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body(state.params, state.opt_state)
+        self.graph = graph
+
+    def _replay(self):
+        self.graph.replay()
+        profiling.count(self.REPLAYS)
+
+
+class DataParallelStep(_GraphStep):
     """What ``make_train_step(mesh=)`` returns: ``step(state, batch, key)``.
 
     Where the params lie on a CUDA device, the batch group's backend is
@@ -657,12 +719,12 @@ class DataParallelStep:
     graph that each call replays: the fused preprocess and its draws,
     forward, backward, the normalizers' all-reduces, the gradients' flat
     all-reduce and the Adam update. The first call records the step's draws
-    (``DataParallelGrads.draw_calls``), warms the step up on a throwaway
-    copy of the state on a side stream and captures one step over the real
-    state, every rank the same collectives in the same order. Before each
-    replay the host makes the step's draws from its ``key``, with the calls
-    the generator path makes (``draws.DrawPlan.fill_keys``), and sends them
-    in one non-blocking copy; the batch is copied into the graph's inputs.
+    (``DataParallelGrads.draw_calls``) and captures the step
+    (``_GraphStep``), every rank the same collectives in the same order.
+    Before each replay the host makes the step's draws from its ``key``,
+    with the calls the generator path makes (``draws.DrawPlan.fill_keys``),
+    and sends them in one non-blocking copy; the batch is copied into the
+    graph's inputs.
     The values are the generator path's, bit for bit. A replay's call
     returns its loss as a :class:`StepLoss` of its own, whose read waits for
     that step only: a loop that reads step n - 1's loss after launching step
@@ -680,13 +742,13 @@ class DataParallelStep:
     ``run`` drive the graph's body eagerly.
     """
 
+    REPLAYS = "train.step_graph.replays"
+
     def __init__(self, loss_fn, optimizer, mesh, remat=False, accum_steps=1):
         self.grads_of = DataParallelGrads(loss_fn, mesh, remat, accum_steps)
         self.optimizer = optimizer
         self.nccl = (mesh_lib.model_size(mesh) == 1
                      and dist.get_backend(self.grads_of.group) == "nccl")
-        self.graph = None
-        self.bound = None  # the state tensors the step was built over
         self.last = None  # the previous replay's StepLoss
 
     def __call__(self, state, batch, key):
@@ -696,22 +758,12 @@ class DataParallelStep:
                     self.load(state, batch, key)
                     loss = self.run(state)
                     return state._replace(step=state.step + 1), {"loss": loss}
-                self._check(state)
+                self._bind(state)
                 profiling.count("train.step_graph.eager")
             loss, grads = self.grads_of(state.params, batch, key)
             self.optimizer.apply(state.opt_state, state.params, grads,
                                  state.step)
             return state._replace(step=state.step + 1), {"loss": loss}
-
-    def _tensors(self, state):
-        opt = state.opt_state
-        leaves = tree_leaves(state.params)
-        return leaves + [t for p in leaves for t in opt.state[p].values()]
-
-    def _check(self, state):
-        if any(a is not b for a, b in zip(self._tensors(state), self.bound)):
-            raise ValueError("a data-parallel graph step is bound to the "
-                             "state of its first call")
 
     def fits(self, batch):
         """Whether ``batch`` has the shapes and dtypes the step was built
@@ -726,8 +778,6 @@ class DataParallelStep:
                                                             batch))
         self.window = draws.Windows(1, self.plan.width, self.device)
         self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.optimizer.prepare(state.opt_state, tree_leaves(state.params))
-        self.bound = self._tensors(state)
 
     def load(self, state, batch, key):
         """The host's half of a step: the batch copied into the step's
@@ -735,7 +785,7 @@ class DataParallelStep:
         the first call)."""
         if self.bound is None:
             self._build(state, batch)
-        self._check(state)
+        self._bind(state)
         for k, v in batch.items():
             self.inputs[k].copy_(v)
         self.window.send(lambda host: self.plan.fill_keys(host, [key]), 1)
@@ -748,30 +798,6 @@ class DataParallelStep:
         self.optimizer.apply(opt, params, grads)
         self.loss.copy_(loss)
 
-    def _capture(self, state):
-        """Warm-up on a throwaway copy of the state, then capture one step
-        over the real one. The input pipeline's thread and NCCL's watchdog
-        may call CUDA meanwhile: only this thread is held to the capture's
-        rules."""
-        throw = tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                         state.params)
-        throw_opt = self.optimizer.init(throw)
-        for p, q in zip(tree_leaves(state.params), tree_leaves(throw)):
-            throw_opt.state[q] = {k: v.clone() for k, v in
-                                  state.opt_state.state[p].items()}
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self.body(throw, throw_opt)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        del throw, throw_opt
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.body(state.params, state.opt_state)
-        self.graph = graph
-        profiling.count("train.step_graph.in_flight", 0)
-
     def run(self, state):
         """The device's half: the loaded step (on CUDA a replay, after the
         capture at the first call); returns its loss, on CUDA as a
@@ -779,11 +805,11 @@ class DataParallelStep:
         counter; ``state.step`` labels the param group's ``lr``."""
         if self.device.type == "cuda":
             if self.graph is None:
-                self._capture(state)
+                self._capture(state, self.body)
+                profiling.count("train.step_graph.in_flight", 0)
             if self.last is not None and not self.last.done():
                 profiling.count("train.step_graph.in_flight")
-            self.graph.replay()
-            profiling.count("train.step_graph.replays")
+            self._replay()
             self.last = loss = StepLoss(self.loss)
         else:
             self.body(state.params, state.opt_state)
@@ -806,14 +832,13 @@ def make_resident_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
     (:func:`fuse_preprocess`). A window's index rows and draws (the plan of
     ``train/draws.py``) go to the device in one copy.
 
-    On a CUDA device the first call warms the step up on a throwaway copy of
-    the state (on a side stream), then captures ONE step into a CUDA graph:
-    gather of the batch by the window's index row, the draws, forward,
-    backward and the Adam update, all selected by a step counter on the
-    device. Each step of a window replays it (``step.replays`` counts the
-    replays). A failed capture or replay raises; nothing runs eagerly in its
-    place. On the CPU the same step body runs K times eagerly: the same
-    values as :func:`make_train_step`, bit for bit.
+    On a CUDA device the first call captures ONE step into a CUDA graph
+    (``_GraphStep``): gather of the batch by the window's index row, the
+    draws, forward, backward and the Adam update, all selected by a step
+    counter on the device. Each step of a window replays it (counted as
+    ``train.resident_step.replays``). A failed capture or replay raises;
+    nothing runs eagerly in its place. On the CPU the same step body runs K
+    times eagerly: the same values as :func:`make_train_step`, bit for bit.
 
     The step is bound to the state and data of its first call; the window
     size may shrink (a ragged last window), not grow.
@@ -822,23 +847,16 @@ def make_resident_train_step(loss_fn, optimizer, remat=False, accum_steps=1):
     return ResidentStep(core, loss_fn, optimizer, accum_steps)
 
 
-class ResidentStep:
+class ResidentStep(_GraphStep):
     """What :func:`make_resident_train_step` returns."""
+
+    REPLAYS = "train.resident_step.replays"
 
     def __init__(self, core, loss_fn, optimizer, accum_steps):
         self.core = core
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.accum_steps = accum_steps
-        self.replays = 0
-        self.graph = None
-        self.bound = None  # the tensors the step was built over
-
-    def _tensors(self, state, data):
-        opt = state.opt_state
-        leaves = tree_leaves(state.params)
-        return ([*leaves, *data.values()]
-                + [t for p in leaves for t in opt.state[p].values()])
 
     def _build(self, state, data, idx):
         k, self.batch = idx.shape
@@ -862,8 +880,6 @@ class ResidentStep:
         self.metrics = torch.zeros((2, k), dtype=torch.float64,
                                    device=self.device)
         self.slots = torch.arange(k, device=self.device)
-        self.optimizer.prepare(state.opt_state, tree_leaves(state.params))
-        self.bound = self._tensors(state, data)
 
     def _body(self, params, opt):
         """One step at window position ``counter``, reading and writing
@@ -879,28 +895,10 @@ class ResidentStep:
             self.metrics))
         self.counter.add_(1)
 
-    def _capture(self, state):
-        """Warm-up on a throwaway copy of the state, then capture one step
-        over the real one."""
-        throw = tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                         state.params)
-        throw_opt = self.optimizer.init(throw)
-        for p, q in zip(tree_leaves(state.params), tree_leaves(throw)):
-            throw_opt.state[q] = {key: v.clone() for key, v in
-                                  state.opt_state.state[p].items()}
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self.counter.zero_()
-                self._body(throw, throw_opt)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        del throw, throw_opt
-        self.counter.zero_()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body(state.params, state.opt_state)
-        self.graph = graph
+    def _first_body(self, params, opt):
+        if not torch.cuda.is_current_stream_capturing():
+            self.counter.zero_()  # each warm-up body at window position 0
+        self._body(params, opt)
 
     def __call__(self, state, data, idx, seed, step0):
         self.load(state, data, idx, seed, step0)
@@ -913,10 +911,7 @@ class ResidentStep:
         k = idx.shape[0]
         if self.bound is None:
             self._build(state, data, idx)
-        elif any(a is not b for a, b in zip(self._tensors(state, data),
-                                            self.bound)):
-            raise ValueError("a resident step is bound to the state and "
-                             "data of its first call")
+        self._bind(state, data)
 
         def fill(host):
             host[:, :self.batch].copy_(torch.from_numpy(idx))
@@ -928,14 +923,12 @@ class ResidentStep:
         """The device's half: ``k`` steps over the loaded window (on CUDA,
         the capture at the first call, then ``k`` replays)."""
         if self.device.type == "cuda" and self.graph is None:
-            self._capture(state)
+            self._capture(state, self._first_body)
         self.counter.zero_()
         for _ in range(k):
             if self.graph is not None:
-                self.graph.replay()
-                self.replays += 1
+                self._replay()
             else:
                 self._body(state.params, state.opt_state)
-        for group in state.opt_state.param_groups:
-            group["lr"] = self.optimizer.schedule(step0 + k - 1)
+        self.optimizer.label(state.opt_state, step0 + k - 1)
         return state._replace(step=state.step + k), self.metrics[:, :k].clone()

@@ -8,10 +8,10 @@ counts the replays that queued behind a running step, refuses a state that
 is not the captured one, runs a batch of other shapes eagerly, and
 captures one step of each train CLI's loss (PoseNet's also with the
 preprocess in the input pipeline, a step that draws nothing). On the CPU:
-the step's binding to the state of its first call, its eager path on a
-gloo mesh of one rank, and what a ``StepLoss`` reading returns. Imports
-torch and the port only (no jax), so the card's tests run with
-``--noconftest``.
+the binding of this step and of the resident step to the state of their
+first call, its eager path on a gloo mesh of one rank, and what a
+``StepLoss`` reading returns. Imports torch and the port only (no jax), so
+the card's tests run with ``--noconftest``.
 """
 
 import os
@@ -146,17 +146,32 @@ def cpu_job(tmp_path_factory):
     return loss, params, {k: torch.from_numpy(v) for k, v in raw.items()}
 
 
-def test_a_graph_step_is_bound_to_the_state_of_its_first_call(cpu_job):
+@pytest.mark.parametrize("kind", ["data_parallel", "resident"])
+def test_a_graph_step_is_bound_to_the_state_of_its_first_call(cpu_job, kind):
     loss, params, raw = cpu_job
     opt = trainer.make_optimizer([1e-4], [])
     state = trainer.init_state(params, opt)
-    step = trainer.DataParallelStep(loss, opt, mesh_lib.make_mesh(1, 1))
-    step.load(state, raw, (0, 0))
-    step.run(state)
-    assert step.fits(raw)
-    assert not step.fits({k: v[:1] for k, v in raw.items()})
+    if kind == "resident":
+        # the two records as the dataset on the device, one window of one
+        # step over both
+        step = trainer.make_resident_train_step(loss, opt)
+        idx = np.arange(2)[None]
+        state, _ = step(state, raw, idx, 0, 0)
+
+        def load(other):
+            step.load(other, raw, idx, 0, 1)
+    else:
+        step = trainer.DataParallelStep(loss, opt, mesh_lib.make_mesh(1, 1))
+        step.load(state, raw, (0, 0))
+        step.run(state)
+        assert step.fits(raw)
+        assert not step.fits({k: v[:1] for k, v in raw.items()})
+
+        def load(other):
+            step.load(other, raw, (0, 1))
+    load(state)  # the state of the first call, stepped on
     with pytest.raises(ValueError, match="bound to the state"):
-        step.load(trainer.init_state(params, opt), raw, (0, 1))
+        load(trainer.init_state(params, opt))
 
 
 def test_dp_step_on_a_gloo_mesh_is_eager(cpu_job):
