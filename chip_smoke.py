@@ -23,7 +23,9 @@ line is printed:
    serpentine that stops at num_passes, NaN, -0.0 / +0.0 ties and ties
    between far rows in the decode;
 4. slice: HandPoseEstimator at full width (random weights from a seed) on
-   240x320 images answers three requests; both kernels must have launched;
+   240x320 images answers three requests; both kernels must have run on
+   the card (its device trace: the estimator replays a CUDA graph, which
+   the bindings' launch counters do not see);
    the kernels must equal their twins on the slice's own tensors; the card's
    outputs are held to the port's CPU run (plain twins) by the flip-aware
    comparison of hand3d_tpu_torch.parity;
@@ -39,7 +41,8 @@ line is printed:
    the caller's frame, that cascade held flip-aware to the port's CPU run;
    DynamicBatcher over a batch-8 estimator, 32 one-image requests from 16
    threads in fewer device batches, each answer equal to its row of a direct
-   predict of its batch; cli.serve's HTTP server in front of the batcher
+   predict of its batch; both kernels run on the card in a request of each
+   (its device trace); cli.serve's HTTP server in front of the batcher
    (.npy POSTs from 4 threads, a 500, /healthz, /metrics) and the one-image
    round trip through it and through a batch-1 server (median of 20; with
    predict on the server's device thread and on each request's own handler
@@ -279,7 +282,7 @@ from hand3d_tpu_torch.ops import (keypoints, nn, phasepack, quant,
                                   segmentation)
 from hand3d_tpu_torch.ops.image import resize_bilinear
 from hand3d_tpu_torch.ops.kernels import (build, decode, floodfill,
-                                         kernel_counts)
+                                         kernel_counts, kernel_runs)
 from hand3d_tpu_torch.parallel import collectives, expert, pipeline
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
 from hand3d_tpu_torch.cli import serve
@@ -873,12 +876,12 @@ def phase_slice(dev, params_np, err):
     requests = [rng.integers(0, 256, (n, H, W, 3), dtype=np.uint8)
                 for n in REQUESTS]
     zero_counts()
-    outs = [est.predict(r) for r in requests]
+    outs, runs = kernel_runs(lambda: [est.predict(r) for r in requests])
     counts = launch_counts()
     log(f"served {len(requests)} requests of {REQUESTS} images; "
-        f"kernel launches {counts}")
-    for name, n in counts.items():
-        require(n > 0, f"the served requests never launched {name}")
+        f"kernel launches {counts}, runs on the card {runs}")
+    for name, n in runs.items():
+        require(n > 0, f"the served requests never ran {name}")
     shapes = {"keypoint_coord3d": (21, 3), "keypoint_uv21": (21, 2),
               "hand_scoremap": (H, W, 2), "scale_crop": (1,), "center": (2,)}
     for n, out in zip(REQUESTS, outs):
@@ -1051,8 +1054,9 @@ def phase_serve_buckets(dev, params_np):
     outs = [auto.predict(r) for r in requests]
     ms = (time.perf_counter() - t0) * 1e3 / len(requests)
     counts = launch_counts()
-    for name, n in counts.items():
-        require(n > 0, f"AutoBucketEstimator never launched {name}")
+    _, runs = kernel_runs(lambda: auto.predict(requests[0]))
+    for name, n in runs.items():
+        require(n > 0, f"AutoBucketEstimator never ran {name}")
     require(list(auto._buckets) == [(H, W)], f"buckets {list(auto._buckets)}")
     cpu_params = weights.params_from_jax(params_np, "cpu")
     summaries = []
@@ -1089,7 +1093,8 @@ def phase_serve_buckets(dev, params_np):
                           "card_vs_cpu": summary})
     log(json.dumps({"serve": "AutoBucketEstimator", "bucket": [H, W],
                     "batch": SERVE_BATCH, "frames": summaries,
-                    "ms_per_request": ms, "launches": counts}))
+                    "ms_per_request": ms, "launches": counts,
+                    "runs_in_one_request": runs}))
     return counts
 
 
@@ -1125,8 +1130,6 @@ def phase_serve_batcher(dev, params_np):
         require(len(batches) < BATCHER_REQUESTS,
                 f"{len(batches)} device batches for {BATCHER_REQUESTS} "
                 "requests: nothing coalesced")
-        for name, n in counts.items():
-            require(n > 0, f"the batcher never launched {name}")
         norm = normalize_images(frames[:, 0])
         for i, answer in enumerate(answers):
             rows = [(b, r) for b, (images, _) in enumerate(batches)
@@ -1145,6 +1148,9 @@ def phase_serve_batcher(dev, params_np):
                         "max_wait_ms": BATCHER_WAIT_MS,
                         "device_batches": sizes, "wall_s": wall,
                         "images_per_s": BATCHER_REQUESTS / wall}))
+        _, runs = kernel_runs(lambda: batcher.predict(frames[0]))
+        for name, n in runs.items():
+            require(n > 0, f"the batcher never ran {name}")
         round_trip = http_checks(dev, params_np, batcher.predict, counts)
     finally:
         batcher.close()

@@ -63,10 +63,15 @@ def to_device_normalized(chunk, levels):
     there, so it is bit-equal to ``normalize_images``: a CUDA ``x / 255.0``
     multiplies by the reciprocal, which differs from the quotient in 111 of
     the 256 values."""
-    x = torch.from_numpy(chunk).to(levels.device)
-    if x.dtype == torch.uint8:
-        x = levels[x.long()]
-    return x
+    return normalized_on_device(torch.from_numpy(chunk).to(levels.device),
+                                levels)
+
+
+def normalized_on_device(x, levels):
+    """``to_device_normalized``'s part on the device: ``x``, a chunk already
+    on ``levels.device``, as the cascade's float32 input (uint8 looked up in
+    ``levels``, float as it is)."""
+    return levels[x.long()] if x.dtype == torch.uint8 else x
 
 
 def select_serving_outputs(out):

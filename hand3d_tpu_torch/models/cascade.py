@@ -16,6 +16,7 @@ from hand3d_tpu_torch.models import handsegnet, posenet, poseprior
 from hand3d_tpu_torch.ops.image import crop_image_from_xy, resize_bilinear
 from hand3d_tpu_torch.ops.keypoints import (decode_upsampled, soft_argmax_2d,
                                             trafo_coords)
+from hand3d_tpu_torch.ops.numerics import device_constant
 from hand3d_tpu_torch.ops.segmentation import (calc_center_bb,
                                                single_obj_scoremap)
 
@@ -121,8 +122,8 @@ class ColorHandPose3D:
             center, _, crop_size_best = calc_center_bb(
                 hand_mask, fallback_center=(160.0 * sh / h, 160.0 * sw / w),
                 fallback_size=100.0 / max(h / sh, w / sw))
-            factors = torch.tensor([h / sh, w / sw], dtype=center.dtype,
-                                   device=center.device)
+            factors = device_constant([h / sh, w / sw], center.dtype,
+                                      center.device)
             center = center * factors
             crop_size_best = crop_size_best * factors.max()
         scale_crop = torch.clamp(CROP_SIZE / (crop_size_best * 1.25),

@@ -13,13 +13,21 @@ frames that ``SnapEstimator`` or ``AutoBucketEstimator`` resize, and
 ``DynamicBatcher``'s requests are normalized on the host
 (``normalize_images``).
 
-Spans (``utils.profiling``): ``serving.h2d`` (a chunk's copy in, and a
-uint8 chunk's normalize on the device) and
-``serving.launch`` (the cascade's launches, the served outputs' selection
-and a mesh's gather) in ``HandPoseEstimator``, with ``batching``'s
-``serving.normalize`` and ``serving.fetch``; ``batcher.queue_wait`` (a
-request's wait from its put to its collection) and the counters
-``batcher.batches`` and ``batcher.images`` in ``DynamicBatcher``.
+On one CUDA device without a mesh, ``HandPoseEstimator`` replays each
+chunk's cascade as a CUDA graph (``_CascadeGraph``), captured at the first
+chunk of each frame dtype; on the CPU and on a mesh it launches the cascade
+op by op.
+
+Spans (``utils.profiling``): ``serving.h2d`` (a chunk's copy in, and on the
+eager path a uint8 chunk's normalize on the device) and ``serving.launch``
+(the eager path: the cascade's launches, the served outputs' selection and
+a mesh's gather; the graph path: the replay, which holds the normalize,
+and the outputs' clones) in ``HandPoseEstimator``, with ``batching``'s
+``serving.normalize`` and ``serving.fetch``; the counters
+``serving.graph.captures`` and ``serving.graph.replays``;
+``batcher.queue_wait`` (a request's wait from its put to its collection)
+and the counters ``batcher.batches`` and ``batcher.images`` in
+``DynamicBatcher``.
 
 Example:
     est = HandPoseEstimator.from_npz("weights.npz", batch_size=32,
@@ -39,8 +47,8 @@ import torch.nn.functional as F
 
 from hand3d_tpu_torch import precision
 from hand3d_tpu_torch.batching import (check_input, chunked_predict,
-                                       normalize_images, predict_input,
-                                       select_serving_outputs,
+                                       normalize_images, normalized_on_device,
+                                       predict_input, select_serving_outputs,
                                        to_device_normalized, uint8_levels)
 from hand3d_tpu_torch.models.cascade import ColorHandPose3D
 from hand3d_tpu_torch.parallel import mesh as mesh_lib
@@ -54,6 +62,7 @@ __all__ = ["AutoBucketEstimator", "DeviceParams", "DynamicBatcher",
 
 
 QUANTIZE_MODES = (None, "int8", "int8_static")
+GRAPH_WARMUP_CALLS = 2  # eager chunks on a side stream before a capture
 
 
 def prepare_params(params, quantize=None, phase_pack=False,
@@ -191,6 +200,18 @@ class HandPoseEstimator:
     On CUDA the estimator turns TF32 off first (``precision.exact_f32``):
     the cascade's parity contract is f32. The bf16 mode allows TF32 for its
     rounded convolutions only (``precision.tf32_convs``).
+
+    On a CUDA device without a mesh, whatever the other arguments, the
+    first chunk of each frame dtype (uint8; float32 normalized on the host)
+    captures the chunk's cascade as a CUDA graph (``_CascadeGraph``), which
+    every later chunk of that dtype replays: equal to the cascade launched
+    op by op, bit for bit. The graphs share one memory pool and one lock
+    (``_GraphPool``): each chunk's copy in, replay and output clones hold
+    the lock, so threads calling one estimator take turns there, and the
+    pool, as large as one eager chunk's activations and cuDNN workspace at
+    their peak, is held as long as the estimator. The buckets of an
+    ``AutoBucketEstimator`` share one ``_GraphPool``. On the CPU and on a
+    mesh the cascade runs op by op.
     """
 
     def __init__(self, params, batch_size=16, input_hw=(240, 320),
@@ -221,12 +242,20 @@ class HandPoseEstimator:
         self.hand_side = hand_side_tensor(left_hand, self.rows[1],
                                           self.device)
         self.levels = uint8_levels(self.device)
+        # {frame dtype: _CascadeGraph} and their pool on a single CUDA
+        # device, else None
+        self._graphs = self._pool = None
+        if self.device.type == "cuda" and mesh is None:
+            self._graphs = {}
+            self._pool = _GraphPool()
 
     @classmethod
     def from_npz(cls, path, **kwargs):
         return cls(load_npz(path), **kwargs)
 
     def _run(self, chunk):
+        if self._graphs is not None:
+            return self._replay(chunk)
         lo, per = self.rows
         with profiling.span("serving.h2d"):
             image = to_device_normalized(chunk[lo:lo + per], self.levels)
@@ -237,9 +266,32 @@ class HandPoseEstimator:
                 out = mesh_lib.gather_rows(out, self.mesh)
         return out
 
+    def _replay(self, chunk):
+        """``_run`` on a single CUDA device: the chunk copied into the
+        static input of its dtype's graph (captured at the first chunk of
+        that dtype), the graph replayed and its outputs cloned, all on the
+        current stream and under the pool's lock, so that neither the
+        next replay nor another thread's chunk overwrites them."""
+        pool = self._pool
+        with pool.lock:
+            graph = self._graphs.get(chunk.dtype)
+            if graph is None:
+                graph = self._graphs[chunk.dtype] = _CascadeGraph(
+                    self, chunk, pool.handle)
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(pool.replayed)
+            with profiling.span("serving.h2d"):
+                graph.input.copy_(torch.from_numpy(chunk))
+            with profiling.span("serving.launch"), torch.inference_mode():
+                graph.replay()
+                out = {k: v.clone() for k, v in graph.out.items()}
+                pool.replayed.record(stream)
+        return out
+
     def warmup(self):
         """Run one batch of uint8 frames ahead of traffic (kernel build,
-        cuDNN set-up, the normalize on the device)."""
+        cuDNN set-up, the normalize on the device; on one CUDA device the
+        capture of the uint8 graph)."""
         self.predict(np.zeros((self.batch_size, *self.input_hw, 3),
                               np.uint8))
         return self
@@ -254,6 +306,65 @@ class HandPoseEstimator:
         images = predict_input(images, normalized)
         check_input(images, self.input_hw)
         return chunked_predict(self._run, images, self.batch_size)
+
+
+class _GraphPool:
+    """What the cascade graphs of one or more single-device estimators
+    share: one memory pool (``handle``), the lock that each chunk's copy
+    in, replay and output clones hold, and the event after the latest
+    clones. Sharing is safe because two of the graphs never replay at once
+    and each replay's outputs are cloned before the next replay, whichever
+    graph that is."""
+
+    def __init__(self):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.replayed = torch.cuda.Event()
+
+
+class _CascadeGraph:
+    """One chunk of a single-device CUDA ``HandPoseEstimator`` captured as a
+    CUDA graph over a static input of one dtype: uint8 frames, looked up in
+    the estimator's ``levels`` inside the graph, or float32 frames.
+
+    ``GRAPH_WARMUP_CALLS`` eager chunks on a side stream come first (cuDNN's
+    plans, the kernels' build, the cascade's device constants); entering
+    ``torch.cuda.graph`` synchronizes and releases their cached blocks, so
+    the graph's pool does not sit beside a second copy of the activations
+    and cuDNN's workspace. The capture holds only this thread to its rules:
+    the server's and the input pipeline's threads may call CUDA meanwhile.
+    ``pool`` is the handle of the ``_GraphPool`` that the graph shares.
+
+    The two kernels' bindings count a launch (``kernels.*.launches``) where
+    the capture records it, once; a replay runs the recorded kernels
+    without entering them, and counts ``serving.graph.replays``."""
+
+    def __init__(self, est, chunk, pool):
+        dev = est.device
+        host = torch.from_numpy(chunk)
+        self.input = torch.zeros(host.shape, dtype=host.dtype, device=dev)
+
+        def body():
+            with torch.inference_mode():
+                return select_serving_outputs(est.net.inference(
+                    est.params, normalized_on_device(self.input, est.levels),
+                    est.hand_side, keypoints_scoremap=False))
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_CALLS):
+                body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = body()
+        profiling.count("serving.graph.captures")
+
+    def replay(self):
+        self.graph.replay()
+        profiling.count("serving.graph.replays")
 
 
 def _resize_to(images, target_hw, device="cpu"):
@@ -328,7 +439,8 @@ class AutoBucketEstimator:
     params on the device.
 
     ``max_buckets`` bounds the buckets (each holds its cuDNN plans and
-    warm-up). With ``snap_hws`` the input is first bilinearly resized on the
+    warm-up; on one CUDA card each its graphs, all in one shared pool).
+    With ``snap_hws`` the input is first bilinearly resized on the
     device to the nearest configured bucket — keypoint_uv21 and center are
     then mapped back to the caller's frame. hand_scoremap and scale_crop
     remain in the bucket's frame (a scalar crop scale cannot survive an
@@ -363,6 +475,7 @@ class AutoBucketEstimator:
         self.snap_hws = [tuple(hw) for hw in snap_hws] if snap_hws else None
         self.max_buckets = max_buckets
         self._buckets = {}
+        self._pool = None  # the buckets' graphs' _GraphPool, on one card
 
     def _bucket(self, hw):
         est = self._buckets.get(hw)
@@ -375,6 +488,8 @@ class AutoBucketEstimator:
             est = HandPoseEstimator(self.params, batch_size=self.batch_size,
                                     input_hw=hw, device=self.device,
                                     **self.kwargs)
+            if est._pool is not None:
+                self._pool = est._pool = self._pool or est._pool
             self._buckets[hw] = est
         return est
 
